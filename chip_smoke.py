@@ -1,0 +1,775 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of MITHRIL end to end on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure exits non-zero:
+
+1. device and build — the card's name and power limit, then the CUDA
+   kernels built from ``src/repro_torch/kernels/csrc`` into
+   ``build/kernels``, one ``nvcc`` per source, all at once;
+2. kernels — each kernel against its plain PyTorch version on the card
+   at the paper's shapes (L = 1, 16, 135 lanes), at the parity sweeps'
+   shapes (``SUITE_MITHRIL``, 16 lanes) and odd cases; equality is
+   exact (int32). ``ms`` is the median CUDA-event time of one call as
+   the main path makes it (wrapper included), ``device_ms`` the
+   kernel's own time in a ``torch.profiler`` trace, ``bound_ms`` the
+   least bytes (or operations) of the same call over the card's peak;
+3. parity — the port's ``sweep_scheduled`` over the 16-trace quick
+   corpus (4000 requests) for the 9 labels of the benchmark grid at
+   capacity 512, in three processes at once; each label's rounded hit
+   ratios (and mean precision) must equal the ``corpus_figures_quick``
+   rows of ``results/bench/BENCH_baseline_quick.json``;
+4. real size — the paper's deployment: the full 135-trace corpus
+   (22.5k-50k requests per trace), the paper's MITHRIL tables and a
+   65,536-block cache with 16 ways, ``mithril-lru`` in one sweep of 135
+   lanes; 4 of its traces, one per family, are run again on the CPU
+   through the plain versions (in a child process, meanwhile) and must
+   give equal ``Stats`` (the child starts with the script).
+
+The main path is phases 3 and 4: the launch counters are zeroed just
+before the parity sweeps and read just after the real-size sweep, and
+each kernel must have launched there; the ``kernels`` line gives the
+launches of each phase. (At the paper's sizes the 50k request traces
+never fill the 65,536-block cache, so the real-size sweep records every
+miss but never mines; the mining kernels run in parity only, and are
+timed at its shapes.)
+The last lines are the ``kernels`` JSON line, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+import zlib
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+BASELINE = ROOT / "results" / "bench" / "BENCH_baseline_quick.json"
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+INT_OPS_PER_S = 67e12         # non-tensor 32-bit rate (the table's fp32 line)
+PAPER_CAPACITY = 65_536       # the paper's 256 MB cache at 4 KB blocks
+PARITY_CAPACITY = 512
+PARITY_LEN = 4_000
+# crc32 of the (16, 4000) int32 block matrix of corpus_suite("quick", 4000):
+# the traces the baseline rows were computed on
+QUICK_CORPUS_CRC32 = 766487755
+REAL_LEN = 50_000
+CROSS_TRACES = ("seq000", "loop003", "midfreq005", "mixed007")
+
+KERNEL_INFO = {
+    "mithril_record": (
+        "src/repro_torch/kernels/csrc/mithril_record.cu",
+        "src/repro/kernels/mithril_record.py:199"),
+    "mithril_pairwise_batched": (
+        "src/repro_torch/kernels/csrc/mithril_mine.cu",
+        "src/repro/kernels/mithril_mine_batched.py:72"),
+    "mithril_pairwise": (
+        "src/repro_torch/kernels/csrc/mithril_mine.cu",
+        "src/repro/kernels/mithril_mine.py:88"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 30, warm: int = 3) -> float:
+    """Median milliseconds of one call, from CUDA events."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in marks)
+
+
+def device_ms(fn, kernel: str, reps: int = 20):
+    """Mean device time of the CUDA kernel whose name contains ``kernel``,
+    from a ``torch.profiler`` trace of ``reps`` calls (None when the
+    profiler records no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total += getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0.0))
+            count += ev.count
+    return total / count / 1e3 if count and total > 0 else None
+
+
+def bound(bytes_: float, ops: float):
+    t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+RECORD_LEAVES = ("rec_key", "rec_ts", "rec_cnt", "rec_age", "rec_loc",
+                 "rec_row", "mine_block", "mine_ts", "mine_cnt", "mine_fill",
+                 "ts")
+
+
+def record_event_bytes(cfg, st, blk, en) -> float:
+    """Least bytes of one record event on ``st``, which the plain version
+    then advances in place. Reads: every lane's enable flag; for an
+    enabled lane its block, ``ts`` and ``mine_fill`` and the bucket's W
+    keys and ages; for a hit, the slot's cnt, loc and row; for a
+    migration, the slot's R timestamps; for an update of a mining row,
+    its count. Writes: the int32 elements the event changes."""
+    import torch
+    from repro_torch.core.hashindex import arange, bucket_index, first_index
+    from repro_torch.kernels.mithril_record import record_step_plain
+    lanes, w, r = blk.shape[0], cfg.rec_ways, cfg.min_support
+    ar = arange(lanes, blk.device)
+    b = bucket_index(blk, cfg.rec_buckets)
+    hit = st.rec_key[ar, b] == blk[:, None]
+    on = en != 0
+    found = on & hit.any(-1)
+    upd = found & (st.rec_loc[ar, b, first_index(hit)] == 1)
+    before = [getattr(st, f).clone() for f in RECORD_LEAVES]
+    record_step_plain(blk, en, *(getattr(st, f) for f in RECORD_LEAVES))
+    changed = sum(int((getattr(st, f) != x).sum())
+                  for f, x in zip(RECORD_LEAVES, before))
+    mig = int((st.mine_fill != before[RECORD_LEAVES.index("mine_fill")])
+              .sum())
+    reads = (lanes + int(on.sum()) * (3 + 2 * w) + int(found.sum()) * 3
+             + mig * r + int(upd.sum()))
+    return 4.0 * (reads + changed)
+
+
+def record_ops(cfg, n_enabled: int) -> float:
+    w, r, s = cfg.rec_ways, cfg.min_support, cfg.max_support
+    return n_enabled * (16 + 8 * w + 6 * r + 8 * s)
+
+
+def max_err(got, want) -> int:
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+def pairwise_bytes(lanes, n, s, window) -> float:
+    return lanes * (n * s * 4 + n * 4 + n) + lanes * n * window * 4
+
+
+def pairwise_ops(lanes, n, s, window) -> float:
+    return lanes * n * window * s * 3
+
+
+def random_mining(rng, lanes, n, s, r_sup, valid_frac=0.8):
+    """Sorted mining tables like the barrier sees: unique first
+    timestamps, clustered rows, some frequent and cleared rows."""
+    import numpy as np
+    import torch
+    base = np.sort(rng.choice(20 * n, size=(lanes, n), replace=True), -1)
+    cnt = rng.integers(r_sup, s + 1, size=(lanes, n))
+    cnt = np.where(rng.random((lanes, n)) < valid_frac, cnt,
+                   rng.choice([0, s + 1], size=(lanes, n)))
+    ts = base[..., None] + np.sort(rng.integers(0, 60, (lanes, n, s)), -1)
+    ts = np.where(np.arange(s) < np.minimum(cnt, s)[..., None], ts, 0)
+    valid = (cnt >= r_sup) & (cnt <= s)
+    return (torch.as_tensor(ts.astype(np.int32)),
+            torch.as_tensor(cnt.astype(np.int32)),
+            torch.as_tensor(valid))
+
+
+def warm_record_state(cfg, lanes, dev, rng, events=400):
+    """A state with live recording and mining rows, drained like mine()."""
+    import torch
+    from repro_torch.core import init_state
+    from repro_torch.kernels.mithril_record import record_step_plain
+    st = init_state(cfg, dev, lanes=lanes)
+    universe = 4 * cfg.rec_buckets * cfg.rec_ways
+    for _ in range(events):
+        blk = torch.as_tensor(rng.integers(0, universe // 64, lanes),
+                              dtype=torch.int32, device=dev)
+        en = torch.ones(lanes, dtype=torch.int32, device=dev)
+        record_step_plain(blk, en, *(getattr(st, f) for f in RECORD_LEAVES))
+        full = st.mine_fill >= cfg.mine_rows - 1
+        st.mine_fill.masked_fill_(full, 0)
+    return st
+
+
+def check_record(cfg, lanes, dev, rng, enabled_frac=1.0, steps=20):
+    """Run kernel and plain on two copies of one state; exact equality
+    after every event. Returns the kernel's and the plain version's ms,
+    the mean least bytes and the operations of a timed event, the
+    kernel's device ms and the largest absolute difference seen."""
+    import torch
+    from repro_torch.kernels.mithril_record import (record_step_kernel,
+                                                    record_step_plain)
+    base = warm_record_state(cfg, lanes, dev, rng)
+    a = type(base)(*(x.clone() for x in base))
+    b = type(base)(*(x.clone() for x in base))
+    universe = 4 * cfg.rec_buckets * cfg.rec_ways
+    err = 0
+    for _ in range(steps):
+        blk = torch.as_tensor(rng.integers(0, universe // 64, lanes),
+                              dtype=torch.int32, device=dev)
+        en = torch.as_tensor(rng.random(lanes) < enabled_frac,
+                             device=dev).to(torch.int32)
+        record_step_kernel(blk, en, *(getattr(a, f) for f in RECORD_LEAVES))
+        record_step_plain(blk, en, *(getattr(b, f) for f in RECORD_LEAVES))
+        torch.cuda.synchronize()
+        for name in a._fields:
+            err = max(err, max_err(getattr(a, name), getattr(b, name)))
+            if not torch.equal(getattr(a, name), getattr(b, name)):
+                fail(f"record kernel differs from plain in {name} "
+                     f"(L={lanes}, NB={cfg.rec_buckets}, "
+                     f"Nm={cfg.mine_rows}, R={cfg.min_support}, "
+                     f"enabled={enabled_frac})")
+    # timing: one event per call on the same inputs; the mining fill
+    # starts at 0 so the 33 timed events stay inside the table
+    blk = torch.as_tensor(rng.integers(0, universe // 64, lanes),
+                          dtype=torch.int32, device=dev)
+    en = torch.as_tensor(rng.random(lanes) < enabled_frac,
+                         device=dev).to(torch.int32)
+    a.mine_fill.zero_()
+    b.mine_fill.zero_()
+    # the bytes of the 33 events cuda_ms times, replayed on a third copy
+    c = type(a)(*(x.clone() for x in a))
+    by = statistics.mean(record_event_bytes(cfg, c, blk, en)
+                         for _ in range(33))
+    del c
+
+    def kern():
+        record_step_kernel(blk, en, *(getattr(a, f) for f in RECORD_LEAVES))
+    ms = cuda_ms(kern)
+    dev_ms = device_ms(kern, "record_kernel")
+    plain_ms = cuda_ms(lambda: record_step_plain(
+        blk, en, *(getattr(b, f) for f in RECORD_LEAVES)))
+    return ms, plain_ms, by, record_ops(cfg, int(en.sum())), dev_ms, err
+
+
+def check_pairwise(lanes, n, s, delta, window, dev, rng, r_sup=4,
+                   valid_frac=0.8, serial=False):
+    import torch
+    from repro_torch.kernels.mithril_mine import pairwise_codes_kernel
+    from repro_torch.kernels.mithril_mine_batched import (
+        pairwise_codes_batched_kernel, pairwise_codes_batched_plain)
+    ts, cnt, valid = (x.to(dev) for x in random_mining(
+        rng, lanes, n, s, r_sup, valid_frac))
+    if serial:                  # the one-lane kernel sees lane 0 only
+        ts, cnt, valid, lanes = ts[:1], cnt[:1], valid[:1], 1
+    want = pairwise_codes_batched_plain(ts, cnt, valid, delta, window)
+    if serial:
+        def kern():
+            return pairwise_codes_kernel(ts[0], cnt[0], valid[0], delta,
+                                         window)[None]
+    else:
+        def kern():
+            return pairwise_codes_batched_kernel(ts, cnt, valid, delta,
+                                                 window)
+    got = kern()
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        fail(f"pairwise kernel differs from plain at {bad} codes "
+             f"(L={lanes}, N={n}, S={s}, W={window}, serial={serial})")
+    ms = cuda_ms(kern)
+    dev_ms = device_ms(kern, "pairwise_codes_kernel")
+    plain_ms = cuda_ms(lambda: pairwise_codes_batched_plain(
+        ts, cnt, valid, delta, window), reps=10)
+    return ms, plain_ms, pairwise_bytes(lanes, n, s, window), \
+        pairwise_ops(lanes, n, s, window), int((want > 0).sum()), dev_ms, err
+
+
+def phase_kernels(dev):
+    """Every kernel against its plain version. Returns, per kernel, the
+    timing at the shape the main path launches it most (record: the
+    real-size sweep's; pairwise: the parity sweeps', the only ones that
+    mine) and the largest absolute difference over all its cases."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import PAPER_MITHRIL as P, SUITE_MITHRIL as M
+    rng = np.random.default_rng(0)
+    cases, timing = [], {}
+    errs = {k: 0 for k in KERNEL_INFO}
+    t0 = time.time()
+
+    def record(cfg, lanes, tag, frac=1.0, timed=None):
+        ms, plain, by, ops, dms, err = check_record(cfg, lanes, dev, rng,
+                                                    enabled_frac=frac)
+        errs["mithril_record"] = max(errs["mithril_record"], err)
+        cases.append({"kernel": "mithril_record", "L": lanes, "case": tag,
+                      "ms": ms, "device_ms": dms, "plain_ms": plain,
+                      "bound_ms": bound(by, ops)[0]})
+        if timed:
+            timing[timed] = (ms, plain, by, ops, dms)
+
+    for lanes in (1, 16, 135):
+        record(P, lanes, "paper tables",
+               timed="mithril_record" if lanes == 135 else None)
+    record(M, 16, "suite tables (parity)", timed="mithril_record@parity")
+    record(M, 16, "suite tables, mixed enabled", frac=0.5)
+    record(dataclasses.replace(P, min_support=1), 16, "R=1")
+    record(P, 16, "mixed enabled", frac=0.5)
+    record(dataclasses.replace(P, rec_buckets=64, mine_rows=16), 16,
+           "small tables", frac=0.7)
+
+    def pairwise(lanes, n, s, delta, w, tag, r_sup=4, vf=0.8, serial=False,
+                 timed=None):
+        name = "mithril_pairwise" if serial else "mithril_pairwise_batched"
+        ms, plain, by, ops, nz, dms, err = check_pairwise(
+            lanes, n, s, delta, w, dev, rng, r_sup=r_sup, valid_frac=vf,
+            serial=serial)
+        errs[name] = max(errs[name], err)
+        cases.append({"kernel": name, "L": 1 if serial else lanes,
+                      "N": n, "S": s, "W": w, "case": tag, "ms": ms,
+                      "device_ms": dms, "plain_ms": plain,
+                      "bound_ms": bound(by, ops)[0], "nonzero_codes": nz})
+        if timed:
+            timing[timed] = (ms, plain, by, ops, dms)
+
+    n, s, delta, w = P.mine_rows, P.max_support, P.lookahead, P.window
+    for lanes in (1, 16, 135):
+        pairwise(lanes, n, s, delta, w, "paper tables")
+    pairwise(1, n, s, delta, w, "paper tables", serial=True)
+    # the parity sweeps' shape: SUITE_MITHRIL's 64 x 8 mining table, 16
+    # lanes (fused path) or one lane (one-lane path)
+    for serial in (False, True):
+        pairwise(16, M.mine_rows, M.max_support, M.lookahead, M.window,
+                 "suite tables (parity)", r_sup=M.min_support, vf=0.9,
+                 serial=serial, timed=("mithril_pairwise" if serial else
+                                       "mithril_pairwise_batched"))
+    for lanes, n_, s_, d_, w_, vf, tag in [
+            (3, 1000, 8, 100, 100, 0.8, "N not a row-block multiple"),
+            (4, 64, 8, 100, 63, 0.0, "all rows invalid"),
+            (2, 40, 4, 50, 90, 0.9, "window >= N"),
+            (2, 300, 12, 30, 300, 0.9, "S=12, wide window")]:
+        for serial in (False, True):
+            pairwise(lanes, n_, s_, d_, w_, tag, r_sup=2, vf=vf,
+                     serial=serial)
+    emit({"phase": "kernels", "seconds": round(time.time() - t0, 3),
+          "exact": True, "max_abs_err": errs, "cases": cases})
+    return timing, errs
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the quick corpus against the checked-in reference rows
+# ---------------------------------------------------------------------------
+
+def parity_grid(capacity: int):
+    """The benchmark grid (a copy of ``benchmarks/common.py::configs``)."""
+    from repro_torch.cache import SimConfig
+    from repro_torch.configs import SUITE_MITHRIL as M
+    grid = [
+        SimConfig(capacity=capacity),
+        SimConfig(capacity=capacity, policy="fifo"),
+        SimConfig(capacity=capacity, use_amp=True),
+        SimConfig(capacity=capacity, use_pg=True),
+        SimConfig(capacity=capacity, use_mithril=True, mithril=M),
+        SimConfig(capacity=capacity, policy="fifo", use_mithril=True,
+                  mithril=M),
+        SimConfig(capacity=capacity, use_amp=True, use_mithril=True,
+                  mithril=M),
+        SimConfig(capacity=capacity, use_learned=True),
+        SimConfig(capacity=capacity, use_learned=True, use_mithril=True,
+                  mithril=M),
+    ]
+    return {cfg.label(): cfg for cfg in grid}
+
+
+def pf_src_of(cfg) -> int:
+    from repro_torch.cache import PF_AMP, PF_MITHRIL, PF_PG
+    if cfg.use_mithril:
+        return PF_MITHRIL
+    if cfg.use_amp:
+        return PF_AMP
+    if cfg.use_pg:
+        return PF_PG
+    return 0
+
+
+# the parity sweeps run in three processes that drive the card at once
+# (each sweep is host-bound); each group takes about a third of the time
+PARITY_GROUPS = (("mithril-amp-lru", "lru", "fifo"),
+                 ("amp-lru", "mithril-lru", "learned-lru"),
+                 ("pg-lru", "mithril-fifo", "learned-mithril-lru"))
+
+
+def parity_labels(dev, labels, n_requests: int = PARITY_LEN) -> dict:
+    """Sweep the quick corpus through ``labels`` in this process and hold
+    each label's rounded hit ratios and mean precision against the
+    baseline row. Returns the results, launch counts and fold time."""
+    import numpy as np
+    from repro_torch.cache import sweep_scheduled
+    from repro_torch.kernels import ops
+    from repro_torch.traces import corpus_suite
+    rows = {r["config"]: r for r in json.loads(BASELINE.read_text())["sweeps"]
+            if r["job"] == "corpus_figures_quick"}
+    names, blocks, lengths = corpus_suite("quick", n_requests)
+    crc = zlib.crc32(np.ascontiguousarray(blocks).tobytes())
+    grid = parity_grid(PARITY_CAPACITY)
+    timer = FoldTimer()
+    ops.reset_launch_counts()
+    t0 = time.time()
+    out = {}
+    try:
+        for label in labels:
+            cfg = grid[label]
+            t1 = time.time()
+            res = sweep_scheduled(cfg, blocks, lengths, device=dev)
+            hr = [round(float(h), 6) for h in res.hit_ratios()]
+            src = pf_src_of(cfg)
+            prec = res.precisions(src) if src else np.full(len(hr), np.nan)
+            prec_mean = (None if np.isnan(prec).all()
+                         else round(float(np.nanmean(prec)), 6))
+            row = rows[label]
+            ok = (hr == row["hit_ratios"]
+                  and prec_mean == row["precision_mean"]
+                  and round(float(np.mean(res.hit_ratios())), 6)
+                  == row["hit_ratio_mean"])
+            out[label] = {"hit_ratio_mean": round(float(np.mean(hr)), 6),
+                          "precision_mean": prec_mean, "equal": ok,
+                          "seconds": round(time.time() - t1, 3)}
+            if not ok:
+                out[label].update(got=hr, want=row["hit_ratios"],
+                                  want_precision=row["precision_mean"])
+    finally:
+        timer.close()
+    return {"labels": out, "launches": ops.launch_counts(),
+            "seconds": time.time() - t0, "fold_seconds": timer.seconds,
+            "n_mines": timer.mines, "traces": len(names),
+            "requests": int(lengths.sum()), "corpus_crc32": crc,
+            "numpy": np.__version__}
+
+
+def phase_parity() -> dict:
+    """The quick corpus through the 9 labels, in PARITY_GROUPS child
+    processes; returns the launch counts of all of them."""
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--parity",
+         ",".join(g)], stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC))) for g in PARITY_GROUPS]
+    try:
+        results = []
+        for proc in procs:
+            out, _ = proc.communicate(timeout=1100)
+            if proc.returncode != 0:
+                fail(f"parity: a sweep process failed ({proc.returncode})")
+            results.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    labels, counts = {}, {}
+    for r in results:
+        labels.update(r["labels"])
+        for k, v in r["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    seconds = time.time() - t0
+    sweep_s = sum(r["seconds"] for r in results)
+    fold_s = sum(r["fold_seconds"] for r in results)
+    first = results[0]
+    emit({"phase": "parity", "traces": first["traces"],
+          "requests": first["requests"],
+          "corpus_crc32": first["corpus_crc32"], "numpy": first["numpy"],
+          "processes": len(results), "labels": labels, "launches": counts,
+          "seconds": seconds, "sweep_seconds": sweep_s,
+          "fold_seconds": fold_s, "fold_share": fold_s / sweep_s,
+          "n_mines": sum(r["n_mines"] for r in results)})
+    crcs = {r["corpus_crc32"] for r in results}
+    if crcs != {QUICK_CORPUS_CRC32}:
+        fail(f"parity: the generated quick corpus (crc32 {crcs}) is not "
+             f"the one the baseline was computed on ({QUICK_CORPUS_CRC32})")
+    bad = [k for k, v in labels.items() if not v["equal"]]
+    if bad or len(labels) != 9:
+        fail(f"parity: {bad or 'labels missing'} differ from "
+             f"BENCH_baseline_quick.json")
+    if counts["mithril_record"] == 0 or not (
+            counts["mithril_pairwise"] or counts["mithril_pairwise_batched"]):
+        fail(f"parity: kernels not launched on the main path: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the paper's deployment at full size
+# ---------------------------------------------------------------------------
+
+def real_config():
+    from repro_torch.cache import SimConfig
+    from repro_torch.configs import PAPER_MITHRIL
+    return SimConfig(capacity=PAPER_CAPACITY, ways=16, policy="lru",
+                     use_mithril=True, mithril=PAPER_MITHRIL)
+
+
+def cross_check_child(n_requests: int) -> None:
+    """Child process: the CROSS_TRACES on the CPU through the plain
+    versions; prints their Stats as JSON."""
+    import torch
+    from repro_torch.cache import pad_traces, sweep_scheduled
+    from repro_torch.traces import build_corpus, corpus_specs
+    torch.set_num_threads(2)
+    specs = [s for s in corpus_specs(n_requests, "full")
+             if s.name in CROSS_TRACES]
+    suite = pad_traces(build_corpus(specs))
+    res = sweep_scheduled(real_config(), suite, device="cpu")
+    print(json.dumps({"names": list(suite.names),
+                      "stats": {k: v.tolist() for k, v in
+                                res.stats._asdict().items()},
+                      "seconds": res.seconds}), flush=True)
+
+
+class FoldTimer:
+    """Host time inside ``mithril._fold_pairs`` (synchronised at exit)
+    and the number of lane mining runs it folded."""
+
+    def __init__(self):
+        import torch
+        from repro_torch.core import mithril
+        self.mod, self.orig = mithril, mithril._fold_pairs
+        self.seconds, self.calls, self.mines = 0.0, 0, 0
+
+        def timed(cfg, state, src, dst, valid, dropped, need=None):
+            t = time.perf_counter()
+            out = self.orig(cfg, state, src, dst, valid, dropped, need)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t
+            self.calls += 1
+            self.mines += (state.ts.shape[0] if need is None
+                           else int(need.sum()))
+            return out
+        mithril._fold_pairs = timed
+
+    def close(self):
+        self.mod._fold_pairs = self.orig
+
+
+def phase_profile(dev, steps: int = 300):
+    """Device busy share of the real-size sweep over its first ``steps``
+    requests, from a ``torch.profiler`` trace: the sum of kernel times
+    over the wall time of the traced sweep, and the kernels that take
+    most of the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.cache import sweep
+    from repro_torch.traces import corpus_suite
+    _, blocks, _ = corpus_suite("full", REAL_LEN)
+    blocks = blocks[:, :steps]
+    cfg = real_config()
+    sweep(cfg, blocks[:, :20], device=dev)          # warm the allocator
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sweep(cfg, blocks, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if dt > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((dt, ev.key, ev.count))
+    busy = sum(r[0] for r in rows) / 1e6
+    rows.sort(reverse=True)
+    emit({"phase": "profile", "steps": steps, "lanes": blocks.shape[0],
+          "wall_seconds": wall, "device_busy_seconds": busy,
+          "device_idle_share": (1.0 - busy / wall) if busy else None,
+          "kernels_per_step": sum(r[2] for r in rows) / steps,
+          "top_device_time": [{"kernel": k[:80], "seconds": t / 1e6,
+                               "count": c} for t, k, c in rows[:8]]})
+
+
+def start_cross_check(n_requests: int = REAL_LEN) -> subprocess.Popen:
+    """The CPU cross-check of the real-size phase, in a child process
+    that runs while the card works (no GPU visible to it)."""
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--cross-check",
+         str(n_requests)], stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES=""))
+
+
+def phase_real(dev, child: subprocess.Popen, timer,
+               n_requests: int = REAL_LEN):
+    import numpy as np
+    import torch
+    from repro_torch.cache import sweep_scheduled
+    from repro_torch.kernels import ops
+    from repro_torch.traces import corpus_suite
+    t_gen = time.time()
+    names, blocks, lengths = corpus_suite("full", n_requests)
+    t_gen = time.time() - t_gen
+    cfg = real_config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    fold = (timer.seconds, timer.calls, timer.mines)
+    res = sweep_scheduled(cfg, blocks, lengths, device=dev)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    hr = res.hit_ratios()
+    if not np.isfinite(hr).all() or hr.shape != (len(names),):
+        fail("real size: hit ratios are not finite")
+    stats = res.stats
+    fold_s = timer.seconds - fold[0]
+    info = {"phase": "real_size", "traces": len(names),
+            "requests": int(lengths.sum()),
+            "requests_min": int(lengths.min()),
+            "requests_max": int(lengths.max()),
+            "lane_width": len(names), "steps": int(lengths.max()),
+            "seconds": res.seconds,
+            "requests_per_s": float(lengths.sum() / res.seconds),
+            "fold_seconds": fold_s, "fold_calls": timer.calls - fold[1],
+            "fold_share": fold_s / res.seconds,
+            "n_mines": timer.mines - fold[2],
+            "hit_ratio_mean": float(hr.mean()),
+            "prefetch_issued": int(stats.pf_issued[:, 1].sum()),
+            "prefetch_used": int(stats.pf_used[:, 1].sum()),
+            "max_memory_allocated": int(peak), "launches": counts,
+            "trace_gen_seconds": t_gen}
+    out, _ = child.communicate(timeout=1200)
+    if child.returncode != 0:
+        emit(info)
+        fail("real size: CPU cross-check process failed")
+    cpu = json.loads(out.strip().splitlines()[-1])
+    idx = [names.index(n) for n in cpu["names"]]
+    for field, want in cpu["stats"].items():
+        got = getattr(stats, field)[idx].tolist()
+        if got != want:
+            emit(info)
+            fail(f"real size: CPU cross-check differs in {field}: "
+                 f"{got} vs {want}")
+    info["cpu_cross_check"] = {"traces": cpu["names"], "equal": True,
+                               "seconds": cpu["seconds"]}
+    emit(info)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--cross-check":
+        sys.path.insert(0, str(SRC))
+        cross_check_child(int(sys.argv[2]))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--parity":
+        import torch
+        sys.path.insert(0, str(SRC))
+        emit(parity_labels(torch.device("cuda"), sys.argv[2].split(",")))
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository (no "
+              "src/repro_torch here)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    t_start = time.time()
+    child = start_cross_check()
+    try:
+        return run(child, t_start)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def run(child: subprocess.Popen, t_start: float) -> int:
+    import torch
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    from repro_torch.kernels import backend
+    t0 = time.time()
+    libs = backend.build_all(force=True)
+    dev = torch.device("cuda")
+    emit({"phase": "build", "device": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda,
+          "libraries": [str(p.relative_to(ROOT)) for p in libs.values()],
+          "seconds": round(time.time() - t0, 3)})
+
+    timing, errs = phase_kernels(dev)
+    # the main path: the parity sweeps (in child processes, whose
+    # counters start at zero) and the real-size sweep, counted from zero
+    # here to the end of the real-size phase
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    by_path = {"parity": phase_parity()}
+    timer = FoldTimer()
+    by_path["real_size"] = phase_real(dev, child, timer)
+    timer.close()
+    counts = {k: by_path["parity"][k] + by_path["real_size"][k]
+              for k in KERNEL_INFO}
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched on the main path: {missing}")
+    phase_profile(dev)
+
+    # each kernel timed at the shape the main path launches it most:
+    # record at the real-size sweep's (paper tables, 135 lanes; its
+    # parity shape is under "at_parity"), pairwise at the parity
+    # sweeps' (the real-size sweep never mines)
+    kernels = []
+    for name, (src, replaces) in KERNEL_INFO.items():
+        ms, plain_ms, by, ops_, dev_ms = timing[name]
+        bound_ms, bound_by = bound(by, ops_)
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": counts[name],
+               "launches_by_path": {p: c[name] for p, c in by_path.items()},
+               "max_abs_err": errs[name], "ms": ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": None}
+        if name + "@parity" in timing:
+            p_ms, p_plain, p_by, p_ops, p_dev = timing[name + "@parity"]
+            row["at_parity"] = {"ms": p_ms, "device_ms": p_dev,
+                                "plain_ms": p_plain,
+                                "bound_ms": bound(p_by, p_ops)[0]}
+        kernels.append(row)
+    emit({"kernels": kernels})
+    emit({"phase": "done", "seconds": round(time.time() - t_start, 3)})
+    print(nvidia_smi(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
