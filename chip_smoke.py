@@ -8,13 +8,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device and build — the card's name and power limit, then the CUDA
    kernels built from ``src/repro_torch/kernels/csrc`` into
    ``build/kernels``, one ``nvcc`` per source, all at once;
-2. kernels — each kernel against its plain PyTorch version on the card
-   at the paper's shapes (L = 1, 16, 135 lanes), at the parity sweeps'
-   shapes (``SUITE_MITHRIL``, 16 lanes) and odd cases; equality is
-   exact (int32). ``ms`` is the median CUDA-event time of one call as
-   the main path makes it (wrapper included), ``device_ms`` the
-   kernel's own time in a ``torch.profiler`` trace, ``bound_ms`` the
-   least bytes (or operations) of the same call over the card's peak;
+2. kernels — each kernel against its plain PyTorch version on the card:
+   the record and mining kernels at the paper's shapes (L = 1, 16, 135
+   lanes), at the parity sweeps' shapes (``SUITE_MITHRIL``, 16 lanes)
+   and odd cases, exactly (int32); the decode kernel at the shapes of
+   ``tests/test_kernels.py::TestPagedDecodeKernel`` and at llama3.2-3b's
+   attention widths, float32 within 2e-5 and bfloat16 within 2e-2; the
+   lookup kernel exactly, Q = 1 and EMPTY queries included. ``ms`` is
+   the median CUDA-event time of one call as the main path makes it
+   (wrapper included), ``device_ms`` the kernel's own time in a
+   ``torch.profiler`` trace, ``bound_ms`` the least bytes (or
+   operations) of the same call over the card's peak, ``library_ms``
+   one PyTorch call computing the same function, where there is one;
 3. parity — the port's ``sweep_scheduled`` over the 16-trace quick
    corpus (4000 requests) for the 9 labels of the benchmark grid at
    capacity 512, in three processes at once; each label's rounded hit
@@ -25,15 +30,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    65,536-block cache with 16 ways, ``mithril-lru`` in one sweep of 135
    lanes; 4 of its traces, one per family, are run again on the CPU
    through the plain versions (in a child process, meanwhile) and must
-   give equal ``Stats`` (the child starts with the script).
+   give equal ``Stats`` (the child starts with the script);
+5. serving — the tiered paged-KV cache under multi-tenant on-off
+   arrivals through ``launch.serve.TieredServeEngine``, with and without
+   MITHRIL: (a) at ``benchmarks/serving_bench.py``'s quick scale, where
+   every deterministic field must equal the ``serving`` rows of
+   ``BENCH_baseline_quick.json``; (b) at llama3.2-3b's attention widths
+   (24 query heads, 8 kv heads, head_dim 128, page 16, float32) with the
+   bench's full-scale traffic at a 2,048-token context (128 pages a
+   request, 704 device slots, 16,384 host pages), whose counters must
+   equal a CPU run of the port in a child process (started with the
+   script), and whose decode through the tier must match the plain
+   decode over the host pages.
 
-The main path is phases 3 and 4: the launch counters are zeroed just
-before the parity sweeps and read just after the real-size sweep, and
-each kernel must have launched there; the ``kernels`` line gives the
-launches of each phase. (At the paper's sizes the 50k request traces
-never fill the 65,536-block cache, so the real-size sweep records every
-miss but never mines; the mining kernels run in parity only, and are
-timed at its shapes.)
+The main path is phases 3, 4 and 5: the launch counters are zeroed just
+before the parity sweeps and read after each of the later phases, and
+each of the five kernels must have launched on one of them; the
+``kernels`` line gives the launches of each phase. (At the paper's
+sizes the 50k request traces never fill the 65,536-block cache, so the
+real-size sweep records every miss but never mines; the batched mining
+kernel runs in parity only, and is timed at its shapes.)
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -74,6 +90,12 @@ KERNEL_INFO = {
     "mithril_pairwise": (
         "src/repro_torch/kernels/csrc/mithril_mine.cu",
         "src/repro/kernels/mithril_mine.py:88"),
+    "hash_lookup": (
+        "src/repro_torch/kernels/csrc/hash_lookup.cu",
+        "src/repro/kernels/hash_lookup.py:62"),
+    "paged_decode": (
+        "src/repro_torch/kernels/csrc/paged_decode.cu",
+        "src/repro/kernels/paged_decode.py:104"),
 }
 
 
@@ -313,11 +335,246 @@ def check_pairwise(lanes, n, s, delta, window, dev, rng, r_sup=4,
         pairwise_ops(lanes, n, s, window), int((want > 0).sum()), dev_ms, err
 
 
+# the decode kernel's shapes: (B, Hq, Hkv, hd, ps, n_pages) of
+# tests/test_kernels.py::TestPagedDecodeKernel, each in both dtypes, then
+# (in phase_serving_kernels) llama3.2-3b's attention widths at the
+# full-width serving batch (5 rows of 128 pages out of the 704-slot pool)
+DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# bfloat16 also within a rounding bound: kernel and plain both compute in
+# float32 and round once, so they differ by the float32 tolerance plus at
+# most two bfloat16 steps (each at most 2**-7 of the value). At the full
+# width the outputs are ~0.04, and 2e-2 alone would pass a dropped page.
+DECODE_BF16_ROUNDING = {"atol": 2e-5, "rtol": 2.0 ** -6}
+DECODE_SHAPES = [(2, 8, 2, 32, 16, 4), (1, 4, 4, 64, 32, 8),
+                 (3, 16, 8, 64, 8, 6), (2, 4, 1, 128, 64, 2)]
+
+
+def decode_bytes(q, pool, tab, lens) -> float:
+    """Least bytes of one decode call: every (page, token) that some
+    row's length reaches, K and V of every kv head, read once; q, the
+    page table and lengths read, the output written."""
+    import torch
+    npg, ps = tab.shape[1], pool.shape[1]
+    pos = (torch.arange(npg, device=tab.device)[:, None] * ps
+           + torch.arange(ps, device=tab.device)[None])       # (npg, ps)
+    live = pos[None] < lens.long()[:, None, None]             # (B, npg, ps)
+    keys = tab.long()[:, :, None] * ps + torch.arange(ps, device=tab.device)
+    n_tok = int(torch.unique(keys[live]).numel())
+    tok_bytes = pool[0, 0].numel() * pool.element_size()
+    return (2.0 * n_tok * tok_bytes + 2 * q.numel() * q.element_size()
+            + 4 * (tab.numel() + lens.numel()))
+
+
+def decode_ops(q, lens) -> float:
+    """Multiply-adds of QK and PV over the positions each row needs."""
+    _, hq, hd = q.shape
+    return 4.0 * hq * hd * float(lens.long().sum())
+
+
+def decode_library(q, k_pool, v_pool, tab, lens):
+    """The yardstick, never the port: a page gather, then one
+    ``scaled_dot_product_attention`` call with GQA and the length mask."""
+    import torch
+    import torch.nn.functional as F
+    b, hq, hd = q.shape
+    _, ps, hkv, _ = k_pool.shape
+    n = tab.shape[1] * ps
+    k = k_pool[tab.long()].reshape(b, n, hkv, hd).transpose(1, 2)
+    v = v_pool[tab.long()].reshape(b, n, hkv, hd).transpose(1, 2)
+    mask = (torch.arange(n, device=q.device)[None] < lens[:, None])
+    return F.scaled_dot_product_attention(
+        q[:, :, None].to(k.dtype), k, v, attn_mask=mask[:, None, None],
+        enable_gqa=True)[:, :, 0]
+
+
+def random_decode(gen, shape, dtype, dev, n_total=None, lengths=None):
+    import torch
+    b, hq, hkv, hd, ps, npg = shape
+    n_total = n_total or npg * b + 2
+    dt = getattr(torch, dtype)
+
+    def randn(*size):
+        return torch.randn(size, generator=gen, device=dev).to(dt)
+    q = randn(b, hq, hd)
+    kp, vp = randn(n_total, ps, hkv, hd), randn(n_total, ps, hkv, hd)
+    tab = torch.randperm(n_total, generator=gen, device=dev)[:b * npg]
+    tab = tab.reshape(b, npg).to(torch.int32)
+    if lengths is None:
+        lens = torch.randint(1, npg * ps + 1, (b,), generator=gen,
+                             device=dev).to(torch.int32)
+    else:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kp, vp, tab, lens
+
+
+def check_decode(shape, dtype, dev, gen, n_total=None, lengths=None,
+                 timed=False):
+    """Kernel against plain on one input; within DECODE_TOL. Returns the
+    largest absolute difference and, when ``timed``, the call's, the
+    plain version's and the library call's ms, bytes, operations and
+    the kernel's device ms."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_decode import paged_decode_plain
+    args = random_decode(gen, shape, dtype, dev, n_total, lengths)
+    got = ops.paged_decode(*args)
+    want = paged_decode_plain(*args)
+    torch.cuda.synchronize()
+    tol = DECODE_TOL[dtype]
+    err = float((got.float() - want.float()).abs().max())
+    if got.dtype != want.dtype or got.shape != want.shape or not \
+            torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        fail(f"decode kernel differs from plain by {err} (shape {shape}, "
+             f"{dtype}, tolerance {tol})")
+    if dtype == "bfloat16" and not torch.allclose(
+            got.float(), want.float(), **DECODE_BF16_ROUNDING):
+        fail(f"decode kernel differs from plain by {err}, more than "
+             f"bfloat16 rounding {DECODE_BF16_ROUNDING} (shape {shape})")
+    if not timed:
+        return err, None
+    q, kp, vp, tab, lens = args
+    ms = cuda_ms(lambda: ops.paged_decode(*args))
+    dev_ms = device_ms(lambda: ops.paged_decode(*args), "paged_decode")
+    plain_ms = cuda_ms(lambda: paged_decode_plain(*args), reps=10)
+    lib_ms = cuda_ms(lambda: decode_library(*args), reps=10)
+    return err, (ms, plain_ms, decode_bytes(q, kp, tab, lens),
+                 decode_ops(q, lens), dev_ms, lib_ms)
+
+
+def lookup_tables(gen, nb, ways, plist, dev, fill=0.7):
+    """A prefetch table with distinct keys in their buckets' first empty
+    ways; empty ways hold values other than EMPTY, so an EMPTY query's
+    result shows which way it matched."""
+    import torch
+    from repro_torch.core.hashindex import bucket_index
+    keys = torch.randperm(1 << 20, generator=gen, device=dev)[
+        :int(nb * ways * fill)].to(torch.int32)
+    pf_key = torch.full((nb, ways), -1, dtype=torch.int32, device=dev)
+    b = bucket_index(keys, nb)
+    order = torch.argsort(b, stable=True)
+    b, keys = b[order], keys[order]
+    first = torch.searchsorted(b, b, right=False)
+    way = torch.arange(len(b), device=dev) - first       # rank in bucket
+    ok = way < ways
+    pf_key[b[ok], way[ok]] = keys[ok]
+    pf_vals = torch.randint(0, 1 << 20, (nb, ways, plist), generator=gen,
+                            device=dev).to(torch.int32)
+    return pf_key, pf_vals, keys[ok]
+
+
+def lookup_bytes(queries, pf_key, pf_vals) -> float:
+    """Per query: the query, the bucket's W keys, a hit way's P values,
+    the P outputs."""
+    from repro_torch.kernels.hash_lookup import hash_lookup_plain
+    ways, plist = pf_key.shape[1], pf_vals.shape[-1]
+    hits = int((hash_lookup_plain(queries, pf_key, pf_vals) != -1)
+               .any(-1).sum())
+    return 4.0 * (queries.numel() * (1 + ways + plist) + hits * plist)
+
+
+def check_lookup(nb, ways, plist, n_q, dev, gen, timed=False):
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.hash_lookup import hash_lookup_plain
+    pf_key, pf_vals, keys = lookup_tables(gen, nb, ways, plist, dev)
+    pick = torch.randint(0, len(keys), (n_q,), generator=gen, device=dev)
+    queries = torch.where(
+        torch.rand(n_q, generator=gen, device=dev) < 0.6, keys[pick],
+        torch.randint(-1, 1 << 21, (n_q,), generator=gen, device=dev)
+        .to(torch.int32))
+    queries[torch.rand(n_q, generator=gen, device=dev) < 0.1] = -1
+    got = ops.prefetch_lookup(queries, pf_key, pf_vals)
+    want = hash_lookup_plain(queries, pf_key, pf_vals)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    if not torch.equal(got, want):
+        fail(f"lookup kernel differs from plain (NB={nb}, W={ways}, "
+             f"P={plist}, Q={n_q})")
+    if not timed:
+        return err, None
+    ms = cuda_ms(lambda: ops.prefetch_lookup(queries, pf_key, pf_vals))
+    dev_ms = device_ms(lambda: ops.prefetch_lookup(queries, pf_key, pf_vals),
+                       "hash_lookup")
+    plain_ms = cuda_ms(lambda: hash_lookup_plain(queries, pf_key, pf_vals))
+    # operations: the hash (about 12 integer ops) and W compares a query
+    return err, (ms, plain_ms, lookup_bytes(queries, pf_key, pf_vals),
+                 n_q * (12.0 + ways), dev_ms, None)
+
+
+def phase_serving_kernels(dev, cases, timing, errs):
+    """The decode and lookup kernels against their plain versions; the
+    timed shapes are those of the full-width serving phase (decode: B =
+    5 rows of 128 pages, float32; lookup: Q = 1 on MCFG's tables) and
+    of the quick-scale one."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def decode(shape, dtype, tag, timed=None, **kw):
+        err, t = check_decode(shape, dtype, dev, gen, timed=bool(timed),
+                              **kw)
+        errs["paged_decode"] = max(errs["paged_decode"], err)
+        row = {"kernel": "paged_decode", "shape": list(shape),
+               "dtype": dtype, "case": tag, "max_abs_err": err}
+        if t:
+            ms, plain, by, ops_, dms, lib = t
+            row.update(ms=ms, device_ms=dms, plain_ms=plain,
+                       library_ms=lib, bound_ms=bound(by, ops_)[0])
+            timing[timed] = t
+        cases.append(row)
+
+    for shape in DECODE_SHAPES:
+        for dtype in DECODE_TOL:
+            decode(shape, dtype, "test shape")
+    p, m, geo = FULL_WIDTH_PAGE, SERVING_PAGE, full_width_geometry()
+    full = (geo["max_batch"], FULL_WIDTH_Q_HEADS, p["n_kv"], p["head_dim"],
+            p["page_size"], geo["pages_per_req"])
+    n_ctx = geo["pages_per_req"] * p["page_size"]
+    decode(full, "float32", "full width, serving batch",
+           n_total=geo["n_hbm_slots"], lengths=[n_ctx] * full[0],
+           timed="paged_decode")
+    decode(full, "bfloat16", "full width, bfloat16 pools",
+           n_total=geo["n_hbm_slots"], lengths=[n_ctx] * full[0])
+    decode(full, "float32", "full width, lengths not page multiples",
+           n_total=geo["n_hbm_slots"],
+           lengths=[n_ctx - 5, 1, n_ctx, 17, n_ctx - 16])
+    quick = SERVING_SCALES["quick"]
+    decode((quick["max_batch"], 4, m["n_kv"], m["head_dim"], m["page_size"],
+            quick["pages_per_req"]), "float32", "quick scale, serving batch",
+           n_total=quick["n_hbm_slots"],
+           lengths=[quick["pages_per_req"] * m["page_size"]]
+           * quick["max_batch"], timed="paged_decode@quick")
+
+    def lookup(nb, ways, plist, n_q, tag, timed=None):
+        err, t = check_lookup(nb, ways, plist, n_q, dev, gen,
+                              timed=bool(timed))
+        errs["hash_lookup"] = max(errs["hash_lookup"], err)
+        row = {"kernel": "hash_lookup", "NB": nb, "W": ways, "P": plist,
+               "Q": n_q, "case": tag, "max_abs_err": err}
+        if t:
+            ms, plain, by, ops_, dms, _ = t
+            row.update(ms=ms, device_ms=dms, plain_ms=plain,
+                       bound_ms=bound(by, ops_)[0])
+            timing[timed] = t
+        cases.append(row)
+
+    mc = serving_mcfg()
+    lookup(mc.pf_buckets, mc.pf_ways, mc.prefetch_list, 1,
+           "serving tables, Q = 1 (the tier's probe)", timed="hash_lookup")
+    for nb, ways, plist, n_q, tag in [
+            (64, 4, 2, 64, "test shape"), (256, 4, 3, 100, "test shape"),
+            (32, 2, 2, 7, "test shape"), (512, 4, 3, 1000, "Q = 1000"),
+            (16384, 4, 2, 100_000, "paper tables, Q = 100,000")]:
+        for _ in range(3):
+            lookup(nb, ways, plist, n_q, tag)
+
+
 def phase_kernels(dev):
     """Every kernel against its plain version. Returns, per kernel, the
     timing at the shape the main path launches it most (record: the
-    real-size sweep's; pairwise: the parity sweeps', the only ones that
-    mine) and the largest absolute difference over all its cases."""
+    real-size sweep's; one-lane pairwise: the serving tier's; batched
+    pairwise: the parity sweeps', the only ones that mine batched) and
+    the largest absolute difference over all its cases."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import PAPER_MITHRIL as P, SUITE_MITHRIL as M
@@ -345,6 +602,10 @@ def phase_kernels(dev):
     record(P, 16, "mixed enabled", frac=0.5)
     record(dataclasses.replace(P, rec_buckets=64, mine_rows=16), 16,
            "small tables", frac=0.7)
+    # the serving tier's shape: MCFG's tables, one lane, one event a miss
+    mc = serving_mcfg()
+    record(mc, 1, "serving tables (MCFG)", timed="mithril_record@serving")
+    record(mc, 1, "serving tables, mixed enabled", frac=0.5)
 
     def pairwise(lanes, n, s, delta, w, tag, r_sup=4, vf=0.8, serial=False,
                  timed=None):
@@ -369,8 +630,17 @@ def phase_kernels(dev):
     for serial in (False, True):
         pairwise(16, M.mine_rows, M.max_support, M.lookahead, M.window,
                  "suite tables (parity)", r_sup=M.min_support, vf=0.9,
-                 serial=serial, timed=("mithril_pairwise" if serial else
-                                       "mithril_pairwise_batched"))
+                 serial=serial, timed=("mithril_pairwise@parity" if serial
+                                       else "mithril_pairwise_batched"))
+    # the serving tier's mining: one lane of MCFG's 8 x 8 table, below
+    # the row block, W = min(Nm - 1, lookahead) = 7
+    pairwise(1, mc.mine_rows, mc.max_support, mc.lookahead, mc.window,
+             "serving tables (MCFG)", r_sup=mc.min_support, serial=True,
+             timed="mithril_pairwise")
+    for _ in range(8):      # every row at full count: weak and strong codes
+        pairwise(1, mc.mine_rows, mc.max_support, mc.lookahead, mc.window,
+                 "serving tables, rows at full count",
+                 r_sup=mc.max_support, vf=1.0, serial=True)
     for lanes, n_, s_, d_, w_, vf, tag in [
             (3, 1000, 8, 100, 100, 0.8, "N not a row-block multiple"),
             (4, 64, 8, 100, 63, 0.0, "all rows invalid"),
@@ -379,8 +649,14 @@ def phase_kernels(dev):
         for serial in (False, True):
             pairwise(lanes, n_, s_, d_, w_, tag, r_sup=2, vf=vf,
                      serial=serial)
+    phase_serving_kernels(dev, cases, timing, errs)
     emit({"phase": "kernels", "seconds": round(time.time() - t0, 3),
-          "exact": True, "max_abs_err": errs, "cases": cases})
+          "exact": ["mithril_record", "mithril_pairwise_batched",
+                    "mithril_pairwise", "hash_lookup"],
+          "tolerance": {"paged_decode": DECODE_TOL,
+                        "paged_decode_bfloat16_rounding":
+                            DECODE_BF16_ROUNDING},
+          "max_abs_err": errs, "cases": cases})
     return timing, errs
 
 
@@ -680,11 +956,322 @@ def phase_real(dev, child: subprocess.Popen, timer,
 
 
 # ---------------------------------------------------------------------------
+# phase 5: serving over the tiered paged-KV cache
+# ---------------------------------------------------------------------------
+
+# copies of benchmarks/serving_bench.py's PAGE, SCALES and MCFG (this
+# script imports nothing of the benchmarks; a CPU test holds them equal)
+SERVING_PAGE = dict(page_size=8, n_kv=2, head_dim=32)
+SERVING_SCALES = {
+    "quick": dict(n_tenants=5, reqs_per_tenant=10, pages_per_req=4,
+                  n_host_pages=256, n_hbm_slots=13, max_batch=3,
+                  idle_len=6, stagger=10),
+    "full": dict(n_tenants=12, reqs_per_tenant=16, pages_per_req=4,
+                 n_host_pages=1024, n_hbm_slots=22, max_batch=5,
+                 idle_len=10, stagger=24),
+}
+SERVING_CONFIGS = (("lru_tier", False), ("mithril_tier", True))
+SERVING_KEYS = ("requests", "tokens", "steps", "mean_batch_occupancy",
+                "turnaround_steps_p50", "turnaround_steps_p95",
+                "turnaround_steps_p99", "tier")
+# llama3.2-3b's attention widths (src/repro/configs/llama3_2_3b.py: 24
+# query heads, 8 kv heads, head_dim 3072 / 24) at page size 16; the tier
+# stores float32
+FULL_WIDTH_PAGE = dict(page_size=16, n_kv=8, head_dim=128)
+FULL_WIDTH_Q_HEADS = 24
+
+
+def serving_mcfg():
+    from repro_torch.core import MithrilConfig
+    return MithrilConfig(min_support=2, max_support=8, lookahead=40,
+                         rec_buckets=512, rec_ways=4, mine_rows=8,
+                         pf_buckets=512, pf_ways=4, prefetch_list=3)
+
+
+def full_width_geometry() -> dict:
+    """The bench's full-scale traffic (12 tenants x 16 requests, on-off
+    arrivals, max batch 5) at a 2,048-token context: 128 pages a request;
+    704 = 22 x 32 device slots, above one batch (640 pages) and below the
+    working set of all tenants (1,536); 16,384 host pages (2 GiB of K+V)."""
+    return dict(SERVING_SCALES["full"], pages_per_req=128,
+                n_host_pages=16_384, n_hbm_slots=704)
+
+
+def build_workload(geo: dict, seed: int = 0):
+    """(arrival, rid, pages, decode_steps) rows in admission order (a copy
+    of ``benchmarks/serving_bench.py::build_workload``)."""
+    import numpy as np
+    from repro_torch.traces import arrival_process
+    rng = np.random.default_rng(seed)
+    streams = {f"tenant{t:02d}": np.empty(geo["reqs_per_tenant"])
+               for t in range(geo["n_tenants"])}
+    arrivals = arrival_process(streams, mode="onoff", burst_len=1,
+                               idle_len=geo["idle_len"],
+                               stagger=geo["stagger"], seed=seed)
+    working_sets = [rng.choice(geo["n_host_pages"], geo["pages_per_req"],
+                               replace=False)
+                    for _ in range(geo["n_tenants"])]
+    rows = []
+    for t, name in enumerate(streams):
+        for j, at in enumerate(arrivals[name]):
+            rows.append((int(at), t * geo["reqs_per_tenant"] + j,
+                         working_sets[t], 2 + (t + j) % 4))
+    rows.sort(key=lambda r: (r[0], r[1]))
+    return rows
+
+
+def serve(geo, page, n_q_heads, mithril, device, pools=None, seed=0):
+    """One serving run; ``pools`` reuses another tier's host pools (the
+    same seed draws the same pages)."""
+    from repro_torch.cache.tiered import TieredKVCache
+    from repro_torch.launch.serve import TieredServeEngine
+    cfg = serving_mcfg() if mithril else None
+    if pools is None:
+        tier = TieredKVCache(geo["n_host_pages"], geo["n_hbm_slots"],
+                             **page, mithril_cfg=cfg, seed=seed,
+                             device=device)
+    else:
+        tier = TieredKVCache.from_host_pools(*pools, geo["n_hbm_slots"],
+                                             mithril_cfg=cfg, device=device)
+    eng = TieredServeEngine(tier, max_batch=geo["max_batch"],
+                            n_q_heads=n_q_heads, seed=seed)
+    for arrival, rid, pages, steps in build_workload(geo, seed):
+        eng.submit(rid, pages, steps, arrival=arrival)
+    return eng.run(), eng
+
+
+def serving_cross_check_child() -> None:
+    """Child process: the full-width serving runs on the CPU through the
+    plain versions; prints their deterministic metrics as JSON."""
+    import torch
+    torch.set_num_threads(2)
+    out, pools = {}, None
+    for config, mithril in SERVING_CONFIGS:
+        t0 = time.time()
+        m, eng = serve(full_width_geometry(), FULL_WIDTH_PAGE,
+                       FULL_WIDTH_Q_HEADS, mithril, "cpu", pools=pools)
+        pools = (eng.tier.host_k, eng.tier.host_v)
+        out[config] = {k: m[k] for k in SERVING_KEYS}
+        out[config]["seconds"] = time.time() - t0
+    print(json.dumps(out), flush=True)
+
+
+def start_serving_cross_check() -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--serving-cross-check"], stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES=""))
+
+
+def check_tier_decode(eng, dev, seed: int = 1) -> float:
+    """A batch of the workload's working sets through ``attend_batch``
+    on the warm tier, against the plain decode over the same pages taken
+    straight from the host pools: finite, of shape (B, Hq, hd) and
+    within 2e-5; returns the largest difference."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.paged_decode import paged_decode_plain
+    tier = eng.tier
+    rng = np.random.default_rng(seed)
+    rows = build_workload(full_width_geometry())
+    page_lists, seen = [], set()
+    for _, _, pages, _ in rows:
+        if id(pages) not in seen and len(page_lists) < eng.max_batch:
+            seen.add(id(pages))
+            page_lists.append(pages)
+    n_ctx = len(page_lists[0]) * tier.page_size
+    lengths = np.asarray([n_ctx - 5 * i for i in range(len(page_lists))])
+    q = rng.standard_normal((len(page_lists), eng.n_q_heads,
+                             tier.head_dim)).astype(np.float32)
+    got = tier.attend_batch(torch.from_numpy(q), page_lists, lengths)
+    ids = torch.from_numpy(np.concatenate(page_lists))
+    k = tier.host_k[ids].to(dev)
+    v = tier.host_v[ids].to(dev)
+    tab = torch.arange(len(ids), device=dev).reshape(len(page_lists), -1)
+    want = paged_decode_plain(torch.from_numpy(q).to(dev), k, v, tab,
+                              torch.from_numpy(lengths).to(dev))
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if tuple(got.shape) != (len(page_lists), eng.n_q_heads,
+                            tier.head_dim) \
+            or not torch.isfinite(got).all() \
+            or not torch.allclose(got, want, rtol=2e-5, atol=2e-5):
+        fail(f"serving: decode through the tier differs from the plain "
+             f"decode over the host pages by {err}")
+    return err
+
+
+class HostSpans:
+    """Host seconds and calls inside named functions while open, nested
+    as they call each other. Nothing is synchronised: a span that ends
+    in a read of a device value includes the wait for it."""
+
+    def __init__(self, targets: dict):
+        self.seconds = {n: 0.0 for n in targets}
+        self.calls = {n: 0 for n in targets}
+        self._orig = []
+        for name, (owner, attr) in targets.items():
+            fn = getattr(owner, attr)
+            self._orig.append((owner, attr, fn))
+            setattr(owner, attr, self._wrap(name, fn))
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds[name] += time.perf_counter() - t
+                self.calls[name] += 1
+        return timed
+
+    def close(self) -> dict:
+        for owner, attr, fn in reversed(self._orig):
+            setattr(owner, attr, fn)
+        return {n: {"seconds": self.seconds[n], "calls": self.calls[n]}
+                for n in self.seconds}
+
+
+def serving_spans() -> HostSpans:
+    """The serving step's host work: the demand pass and, inside it, the
+    installs (eviction + the two page copies) and MITHRIL on each miss
+    (record, mining check, lookup), with the mining runs inside that;
+    the decode launch."""
+    from repro_torch.cache.tiered import TieredKVCache
+    from repro_torch.core import mithril
+    return HostSpans({
+        "demand_batch": (TieredKVCache, "demand_batch"),
+        "install": (TieredKVCache, "_install"),
+        "mithril_on_miss": (TieredKVCache, "_mithril_on_miss"),
+        "mine": (mithril, "mine"),
+        "decode_batch": (TieredKVCache, "decode_batch")})
+
+
+def profile_serving(eng, n_requests: int = 40) -> dict:
+    """Device busy share of the warm full-width MITHRIL tier serving
+    ``n_requests`` more requests of the workload, from a
+    ``torch.profiler`` trace: kernels and copies on the device over the
+    wall time, and what takes most of the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import TieredServeEngine
+    rows = build_workload(full_width_geometry())[:n_requests]
+    e2 = TieredServeEngine(eng.tier, max_batch=eng.max_batch,
+                           n_q_heads=eng.n_q_heads, seed=1)
+    for arrival, rid, pages, steps in rows:
+        e2.submit(rid, pages, steps, arrival=arrival)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        e2.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    found = []
+    for ev in prof.key_averages():
+        dt = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if dt > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            found.append((dt, ev.key, ev.count))
+    busy = sum(r[0] for r in found) / 1e6
+    found.sort(reverse=True)
+    return {"requests": len(rows), "steps": e2.steps, "wall_seconds": wall,
+            "device_busy_seconds": busy,
+            "device_idle_share": (1.0 - busy / wall) if busy else None,
+            "device_ops_per_step": sum(r[2] for r in found) / max(1, e2.steps),
+            "top_device_time": [{"op": k[:80], "seconds": t / 1e6,
+                                 "count": c} for t, k, c in found[:8]]}
+
+
+def phase_serving(dev, child: subprocess.Popen) -> dict:
+    """Quick-scale parity against the baseline rows, then the full width
+    on the card against the CPU child. Returns the launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    rows = {r["config"]: r for r in json.loads(BASELINE.read_text())[
+        "serving"] if r["job"] == "serving_quick"}
+    before = ops.launch_counts()
+    t0 = time.time()
+    quick = {}
+    for config, mithril in SERVING_CONFIGS:
+        m, _ = serve(SERVING_SCALES["quick"], SERVING_PAGE, 4, mithril, dev)
+        equal = all(m[k] == rows[config][k] for k in SERVING_KEYS)
+        quick[config] = {k: m[k] for k in SERVING_KEYS}
+        quick[config].update(equal=equal,
+                             throughput_tok_s=m["throughput_tok_s"],
+                             wall_seconds=m["wall_seconds"])
+        if not equal:
+            quick[config]["want"] = {k: rows[config][k] for k in SERVING_KEYS}
+    info = {"phase": "serving", "numpy": np.__version__,
+            "quick": quick, "quick_seconds": time.time() - t0}
+    geo = full_width_geometry()
+    info["full_width"] = {"geometry": geo, "page": FULL_WIDTH_PAGE,
+                          "q_heads": FULL_WIDTH_Q_HEADS, "dtype": "float32",
+                          "runs": {}}
+    full, pools, warm = info["full_width"]["runs"], None, None
+    for config, mithril in SERVING_CONFIGS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = ops.launch_counts()
+        t1 = time.time()
+        spans = serving_spans()
+        try:
+            m, eng = serve(geo, FULL_WIDTH_PAGE, FULL_WIDTH_Q_HEADS,
+                           mithril, dev, pools=pools)
+            torch.cuda.synchronize()
+        finally:
+            host_spans = spans.close()
+        seconds = time.time() - t1
+        pools = (eng.tier.host_k, eng.tier.host_v)
+        full[config] = dict(m, seconds=seconds, host_spans=host_spans,
+                            max_memory_allocated=int(
+                                torch.cuda.max_memory_allocated()),
+                            launches={k: v - c0[k] for k, v in
+                                      ops.launch_counts().items()})
+        if mithril:
+            full[config]["n_mines"] = int(eng.tier._mstate.n_mines[0])
+            warm = eng
+    counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    # off the counted path: the data plane against the host pages, and a
+    # profiled window of the warm tier
+    info["full_width"]["tier_decode_max_abs_err"] = check_tier_decode(
+        warm, dev)
+    info["full_width"]["profile"] = profile_serving(warm)
+    del warm, pools
+    out, _ = child.communicate(timeout=1100)
+    if child.returncode != 0:
+        emit(info)
+        fail("serving: CPU cross-check process failed")
+    cpu = json.loads(out.strip().splitlines()[-1])
+    for config, _ in SERVING_CONFIGS:
+        got = {k: full[config][k] for k in SERVING_KEYS}
+        want = {k: cpu[config][k] for k in SERVING_KEYS}
+        full[config]["cpu_equal"] = got == want
+        full[config]["cpu_seconds"] = cpu[config]["seconds"]
+        if got != want:
+            full[config]["cpu"] = want
+    info["launches"] = counts
+    emit(info)
+    bad = [c for c, v in quick.items() if not v["equal"]]
+    if bad:
+        fail(f"serving: {bad} differ from BENCH_baseline_quick.json")
+    bad = [c for c, v in full.items() if not v["cpu_equal"]]
+    if bad:
+        fail(f"serving: full-width {bad} differ from the CPU run")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--cross-check":
         sys.path.insert(0, str(SRC))
         cross_check_child(int(sys.argv[2]))
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--serving-cross-check":
+        sys.path.insert(0, str(SRC))
+        serving_cross_check_child()
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--parity":
         import torch
@@ -702,16 +1289,18 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     t_start = time.time()
-    child = start_cross_check()
+    children = {"real_size": start_cross_check(),
+                "serving": start_serving_cross_check()}
     try:
-        return run(child, t_start)
+        return run(children, t_start)
     finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait()
+        for child in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
 
 
-def run(child: subprocess.Popen, t_start: float) -> int:
+def run(children: dict, t_start: float) -> int:
     import torch
     smi = nvidia_smi()
     print(smi, flush=True)
@@ -727,16 +1316,16 @@ def run(child: subprocess.Popen, t_start: float) -> int:
 
     timing, errs = phase_kernels(dev)
     # the main path: the parity sweeps (in child processes, whose
-    # counters start at zero) and the real-size sweep, counted from zero
-    # here to the end of the real-size phase
+    # counters start at zero), the real-size sweep and the serving runs,
+    # counted from zero here to the end of the serving phase
     from repro_torch.kernels import ops
     ops.reset_launch_counts()
     by_path = {"parity": phase_parity()}
     timer = FoldTimer()
-    by_path["real_size"] = phase_real(dev, child, timer)
+    by_path["real_size"] = phase_real(dev, children["real_size"], timer)
     timer.close()
-    counts = {k: by_path["parity"][k] + by_path["real_size"][k]
-              for k in KERNEL_INFO}
+    by_path["serving"] = phase_serving(dev, children["serving"])
+    counts = {k: sum(c[k] for c in by_path.values()) for k in KERNEL_INFO}
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
@@ -744,23 +1333,29 @@ def run(child: subprocess.Popen, t_start: float) -> int:
 
     # each kernel timed at the shape the main path launches it most:
     # record at the real-size sweep's (paper tables, 135 lanes; its
-    # parity shape is under "at_parity"), pairwise at the parity
-    # sweeps' (the real-size sweep never mines)
+    # parity and serving shapes are under "at_parity" / "at_serving"),
+    # one-lane pairwise at the serving tier's (MCFG, N = 8, W = 7; its
+    # parity shape under "at_parity"), batched pairwise at the parity
+    # sweeps' (the real-size sweep never mines), decode and lookup at
+    # the full-width serving run's (decode's quick-scale shape is under
+    # "at_quick")
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
-        ms, plain_ms, by, ops_, dev_ms = timing[name]
+        ms, plain_ms, by, ops_, dev_ms, lib_ms = (timing[name] + (None,))[:6]
         bound_ms, bound_by = bound(by, ops_)
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": counts[name],
                "launches_by_path": {p: c[name] for p, c in by_path.items()},
                "max_abs_err": errs[name], "ms": ms, "device_ms": dev_ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": None}
-        if name + "@parity" in timing:
-            p_ms, p_plain, p_by, p_ops, p_dev = timing[name + "@parity"]
-            row["at_parity"] = {"ms": p_ms, "device_ms": p_dev,
-                                "plain_ms": p_plain,
-                                "bound_ms": bound(p_by, p_ops)[0]}
+               "bound_by": bound_by, "library_ms": lib_ms}
+        for tag in ("parity", "quick", "serving"):
+            if f"{name}@{tag}" in timing:
+                t_ms, t_plain, t_by, t_ops, t_dev = \
+                    timing[f"{name}@{tag}"][:5]
+                row[f"at_{tag}"] = {"ms": t_ms, "device_ms": t_dev,
+                                    "plain_ms": t_plain,
+                                    "bound_ms": bound(t_by, t_ops)[0]}
         kernels.append(row)
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": round(time.time() - t_start, 3)})

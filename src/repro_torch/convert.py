@@ -13,7 +13,10 @@ A state produced by the JAX reference (as numpy arrays, or anything
 * :func:`config_from` rebuilds a frozen configuration dataclass
   (``SimConfig``, ``MithrilConfig``, ``AmpConfig``, ``PgConfig``,
   ``LearnedConfig`` with its fixed-point weights) as the port's class of
-  the same name.
+  the same name;
+* :func:`tier_from` carries a reference ``TieredKVCache`` across into
+  the port's, mid-stream: pools, slots and their metadata, clock,
+  counters and MITHRIL state.
 
 The port's functions take a leading lanes axis; the reference's sweep
 carry has one, a single reference state gets one with ``lanes=True``.
@@ -31,6 +34,7 @@ from .cache.amp import AmpConfig, AmpState
 from .cache.base import CacheState, pack_cache
 from .cache.pg import PgConfig, PgState
 from .cache.simulator import SimConfig, Stats
+from .cache.tiered import TieredKVCache, TieredStats
 from .core.config import MithrilConfig
 from .core.state import MithrilState
 from .learn.policy import LearnedConfig
@@ -98,3 +102,27 @@ def config_from(cfg: Any) -> Any:
         kw[f.name] = (config_from(v) if dataclasses.is_dataclass(v)
                       else v)
     return cls(**kw)
+
+
+def tier_from(ref: Any, device: Union[None, str, torch.device] = None
+              ) -> TieredKVCache:
+    """A reference ``TieredKVCache`` as the port's, on ``device``.
+
+    Carries the host pools, the slot pools and slot metadata, the
+    page -> slot map, the clock, the counters, the configuration and the
+    MITHRIL state (one lane), so the port continues the reference's
+    access stream with the same counters."""
+    cfg = None if ref.mith_cfg is None else config_from(ref.mith_cfg)
+    tier = TieredKVCache.from_host_pools(
+        np.asarray(ref.host_k), np.asarray(ref.host_v), ref.n_hbm_slots,
+        mithril_cfg=cfg, device=device)
+    tier.hbm_k.copy_(torch.from_numpy(np.asarray(ref.hbm_k)))
+    tier.hbm_v.copy_(torch.from_numpy(np.asarray(ref.hbm_v)))
+    for name in ("slot_page", "slot_stamp", "slot_pf", "slot_sc"):
+        getattr(tier, name)[:] = getattr(ref, name)
+    tier.page_slot = {int(p): int(s) for p, s in ref.page_slot.items()}
+    tier.clock = int(ref.clock)
+    tier.stats = TieredStats(**dataclasses.asdict(ref.stats))
+    if cfg is not None:
+        tier._mstate = to_torch(ref._mstate, device, lanes=True)
+    return tier

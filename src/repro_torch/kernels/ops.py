@@ -12,14 +12,18 @@ from typing import Dict
 
 import torch
 
+from .hash_lookup import hash_lookup_kernel
 from .mithril_mine import pairwise_codes_kernel
 from .mithril_mine_batched import pairwise_codes_batched_kernel
 from .mithril_record import record_step_kernel
+from .paged_decode import paged_decode_kernel
 
 KERNELS = {
     "mithril_record": record_step_kernel,
     "mithril_pairwise_batched": pairwise_codes_batched_kernel,
     "mithril_pairwise": pairwise_codes_kernel,
+    "hash_lookup": hash_lookup_kernel,
+    "paged_decode": paged_decode_kernel,
 }
 
 
@@ -61,3 +65,22 @@ def mithril_record_fused(states, blocks: torch.Tensor,
                        states.rec_row, states.mine_block, states.mine_ts,
                        states.mine_cnt, states.mine_fill, states.ts)
     return states
+
+
+def prefetch_lookup(queries: torch.Tensor, pf_key: torch.Tensor,
+                    pf_vals: torch.Tensor) -> torch.Tensor:
+    """Batched MITHRIL prefetch-table probe: (Q,) -> (Q, P) candidates,
+    for any Q (the kernel needs no padding of the queries)."""
+    return hash_lookup_kernel(queries.to(torch.int32), pf_key, pf_vals)
+
+
+def paged_decode(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                 page_table: torch.Tensor, lengths: torch.Tensor
+                 ) -> torch.Tensor:
+    """Flash-decode over paged KV: (B, Hq, hd) x pools -> (B, Hq, hd).
+
+    The page table and lengths may come as any integer type (the tier's
+    page table is int64); the kernel takes them as int32."""
+    return paged_decode_kernel(q, k_pool, v_pool,
+                               page_table.to(torch.int32).contiguous(),
+                               lengths.to(torch.int32).contiguous())

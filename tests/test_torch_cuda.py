@@ -99,3 +99,95 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         pairwise_codes_batched_kernel(ts.transpose(1, 2).contiguous()
                                       .transpose(1, 2), cnt, valid, 4, 4)
+
+
+DECODE_SHAPES = [(2, 8, 2, 32, 16, 4), (1, 4, 4, 64, 32, 8),
+                 (3, 16, 8, 64, 8, 6), (2, 4, 1, 128, 64, 2),
+                 (5, 24, 8, 128, 16, 128), (2, 32, 2, 256, 16, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,hq,hkv,hd,ps,npg", DECODE_SHAPES)
+def test_paged_decode_kernel_matches_plain(cuda, b, hq, hkv, hd, ps, npg,
+                                           dtype, tol):
+    from repro_torch.kernels.paged_decode import (paged_decode_kernel,
+                                                  paged_decode_plain)
+    rng = np.random.default_rng(b * hq + npg)
+    n_total = npg * b + 2
+    q = torch.as_tensor(rng.standard_normal((b, hq, hd)), dtype=dtype)
+    kp, vp = (torch.as_tensor(rng.standard_normal((n_total, ps, hkv, hd)),
+                              dtype=dtype) for _ in range(2))
+    tab = torch.as_tensor(rng.choice(n_total, (b, npg), replace=False),
+                          dtype=torch.int32)
+    lens = torch.as_tensor(rng.integers(0, npg * ps + 1, b),
+                           dtype=torch.int32)
+    want = paged_decode_plain(q, kp, vp, tab, lens)
+    before = ops.launch_counts()["paged_decode"]
+    got = paged_decode_kernel(*(x.to(cuda) for x in (q, kp, vp, tab, lens)))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_decode"] == before + 1
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,w,p,nq", [(64, 4, 2, 64), (256, 4, 3, 100),
+                                       (32, 2, 2, 7), (512, 4, 3, 1),
+                                       (16384, 4, 2, 5000)])
+def test_hash_lookup_kernel_matches_plain(cuda, nb, w, p, nq):
+    from repro_torch.kernels.hash_lookup import (hash_lookup_kernel,
+                                                 hash_lookup_plain)
+    from repro_torch.core.hashindex import bucket_index
+    rng = np.random.default_rng(nb + nq)
+    keys = torch.as_tensor(rng.choice(10**6, nb * w, replace=False),
+                           dtype=torch.int32)
+    pf_key = torch.full((nb, w), -1, dtype=torch.int32)
+    for k, b in zip(keys.tolist(), bucket_index(keys, nb).tolist()):
+        free = (pf_key[b] == -1).nonzero()
+        if len(free):
+            pf_key[b, free[0, 0]] = k
+    pf_vals = torch.as_tensor(rng.integers(0, 10**6, (nb, w, p)),
+                              dtype=torch.int32)
+    qs = keys[torch.as_tensor(rng.integers(0, nb * w, nq))].clone()
+    miss = torch.as_tensor(rng.random(nq) < 0.3)
+    qs[miss] = torch.as_tensor(rng.integers(-1, 2 * 10**6, int(miss.sum())),
+                               dtype=torch.int32)
+    qs[:1] = -1
+    want = hash_lookup_plain(qs, pf_key, pf_vals)
+    got = hash_lookup_kernel(qs.to(cuda), pf_key.to(cuda), pf_vals.to(cuda))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+def test_tier_on_the_card_matches_the_cpu(cuda):
+    """Counters, slots and decode outputs of a MITHRIL tier on the card
+    equal those of the same tier on the CPU."""
+    from repro_torch.cache.tiered import TieredKVCache
+    cfg = MithrilConfig(min_support=2, max_support=8, lookahead=30,
+                        rec_buckets=256, rec_ways=4, mine_rows=8,
+                        pf_buckets=256, pf_ways=4, prefetch_list=3)
+    kw = dict(n_host_pages=200, n_hbm_slots=16, page_size=8, n_kv=2,
+              head_dim=16, mithril_cfg=cfg)
+    gpu = TieredKVCache(**kw, device=cuda)
+    cpu = TieredKVCache(**kw, device="cpu")
+    rng = np.random.default_rng(3)
+    reqs = [rng.choice(200, 4, replace=False) for _ in range(12)]
+    before = ops.launch_counts()
+    for _ in range(60):
+        batch = [reqs[i] for i in rng.choice(12, 3, replace=False)]
+        q = torch.as_tensor(rng.standard_normal((3, 8, 16)),
+                            dtype=torch.float32)
+        lengths = np.array([32, 29, 17])
+        got = gpu.attend_batch(q, batch, lengths)
+        want = cpu.attend_batch(q, batch, lengths)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=2e-5, atol=2e-5)
+    assert gpu.stats == cpu.stats and gpu.stats.prefetch_used > 0
+    np.testing.assert_array_equal(gpu.slot_page, cpu.slot_page)
+    after = ops.launch_counts()
+    for name in ("mithril_record", "mithril_pairwise", "hash_lookup",
+                 "paged_decode"):
+        assert after[name] > before[name], name
