@@ -7,19 +7,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device and build — the card's name and power limit, then the CUDA
    kernels built from ``src/repro_torch/kernels/csrc`` into
-   ``build/kernels``, one ``nvcc`` per source, all at once;
+   ``build/kernels``, one ``nvcc`` per source, all at once, with what
+   ptxas reports for the decode kernels (registers, spills);
 2. kernels — each kernel against its plain PyTorch version on the card:
    the record and mining kernels at the paper's shapes (L = 1, 16, 135
    lanes), at the parity sweeps' shapes (``SUITE_MITHRIL``, 16 lanes)
    and odd cases, exactly (int32); the decode kernel at the shapes of
    ``tests/test_kernels.py::TestPagedDecodeKernel`` and at llama3.2-3b's
-   attention widths, float32 within 2e-5 and bfloat16 within 2e-2; the
-   lookup kernel exactly, Q = 1 and EMPTY queries included. ``ms`` is
-   the median CUDA-event time of one call as the main path makes it
+   attention widths (5 rows and one row; lengths 0, 1, ragged and
+   full), float32 within 2e-5 and bfloat16 within 2e-2; the lookup
+   kernel exactly, Q = 1 and EMPTY queries included. ``ms`` is the
+   median CUDA-event time of one call as the main path makes it
    (wrapper included), ``device_ms`` the kernel's own time in a
-   ``torch.profiler`` trace, ``bound_ms`` the least bytes (or
-   operations) of the same call over the card's peak, ``library_ms``
-   one PyTorch call computing the same function, where there is one;
+   ``torch.profiler`` trace (decode: split kernel plus merge, with the
+   split plan), ``bound_ms`` the least bytes (or operations) of the
+   same call over the card's peak, ``library_ms`` one PyTorch call
+   computing the same function, where there is one;
+   ``launch_floor_ms`` is the device time of one PyTorch elementwise op
+   on a one-element tensor;
 3. parity — the port's ``sweep_scheduled`` over the 16-trace quick
    corpus (4000 requests) for the 9 labels of the benchmark grid at
    capacity 512, in three processes at once; each label's rounded hit
@@ -45,11 +50,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 The main path is phases 3, 4 and 5: the launch counters are zeroed just
 before the parity sweeps and read after each of the later phases, and
-each of the five kernels must have launched on one of them; the
-``kernels`` line gives the launches of each phase. (At the paper's
-sizes the 50k request traces never fill the 65,536-block cache, so the
-real-size sweep records every miss but never mines; the batched mining
-kernel runs in parity only, and is timed at its shapes.)
+each of the five kernels (and the decode's merge) must have launched
+on one of them; the ``kernels`` line gives the launches of each phase.
+(At the paper's sizes the 50k request traces never fill the
+65,536-block cache, so the real-size sweep records every miss but never
+mines; the batched mining kernel runs in parity only, and is timed at
+its shapes.)
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -136,10 +142,9 @@ def cuda_ms(fn, reps: int = 30, warm: int = 3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in marks)
 
 
-def device_ms(fn, kernel: str, reps: int = 20):
-    """Mean device time of the CUDA kernel whose name contains ``kernel``,
-    from a ``torch.profiler`` trace of ``reps`` calls (None when the
-    profiler records no device time)."""
+def profiled_kernels(fn, reps: int):
+    """``(name, device seconds * 1e6, launches)`` of every CUDA kernel in
+    a ``torch.profiler`` trace of ``reps`` calls of ``fn``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -148,13 +153,67 @@ def device_ms(fn, kernel: str, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for ev in prof.key_averages():
-        if kernel in ev.key:
-            total += getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0.0))
-            count += ev.count
+    return [(ev.key, getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0.0)),
+             ev.count) for ev in prof.key_averages()]
+
+
+def device_ms(fn, kernel: str, reps: int = 20):
+    """Mean device time of the CUDA kernel whose name contains ``kernel``,
+    from a ``torch.profiler`` trace of ``reps`` calls (None when the
+    profiler records no device time)."""
+    hits = [(t, n) for key, t, n in profiled_kernels(fn, reps)
+            if kernel in key]
+    total, count = sum(t for t, _ in hits), sum(n for _, n in hits)
     return total / count / 1e3 if count and total > 0 else None
+
+
+def device_ms_per_call(fn, kernels, reps: int = 20) -> dict:
+    """Device time a call spends in each named CUDA kernel (a name
+    matches the kernels whose names contain it), from one trace of
+    ``reps`` calls; None where the profiler records no device time."""
+    trace = profiled_kernels(fn, reps)
+    out = {}
+    for kernel in kernels:
+        total = sum(t for key, t, _ in trace if kernel in key)
+        out[kernel] = total / reps / 1e3 if total > 0 else None
+    return out
+
+
+def launch_floor_ms() -> float:
+    """Device time of one PyTorch elementwise op on a one-element CUDA
+    tensor: what any kernel launch costs on the card, whatever it does."""
+    import torch
+    x = torch.zeros(1, device="cuda")
+    return device_ms(lambda: x.add_(1), "elementwise_kernel", reps=200)
+
+
+def ptxas_report(log: str) -> list:
+    """Registers, spills and static shared memory of each decode kernel
+    in an ``nvcc -Xptxas -v`` log, template arguments spelt out."""
+    import re
+    rows, row = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '[^']*?(paged_decode_"
+                      r"(?:split|merge))(?:I(13__nv_bfloat16|f)Li(\d+)E)?",
+                      line)
+        if m:
+            name = m.group(1)
+            if m.group(2):
+                name += (f"<{'float' if m.group(2) == 'f' else 'bfloat16'}"
+                         f", hd <= {32 * int(m.group(3))}>")
+            row = {"kernel": name}
+            rows.append(row)
+        elif row is not None:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("static_smem_bytes", r"(\d+) bytes smem"),
+                             ("stack_frame_bytes", r"(\d+) bytes stack"),
+                             ("spill_store_bytes", r"(\d+) bytes spill st"),
+                             ("spill_load_bytes", r"(\d+) bytes spill lo")):
+                m = re.search(pat, line)
+                if m:
+                    row[key] = int(m.group(1))
+    return rows
 
 
 def bound(bytes_: float, ops: float):
@@ -407,12 +466,27 @@ def random_decode(gen, shape, dtype, dev, n_total=None, lengths=None):
     return q, kp, vp, tab, lens
 
 
+def decode_plan(shape, dtype) -> dict:
+    """The split plan the wrapper picks for ``shape`` on this card."""
+    import torch
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.paged_decode import decode_smem_bytes, split_plan
+    b, hq, hkv, hd, ps, npg = shape
+    pps, n_splits = split_plan(b, hkv, npg, ps, backend.sm_count(
+        torch.device("cuda")))
+    return {"pages_per_split": pps, "n_splits": n_splits,
+            "blocks": n_splits * hkv * b, "merge": n_splits > 1,
+            "smem_bytes": decode_smem_bytes(hq, hkv, hd,
+                                            getattr(torch, dtype), pps)}
+
+
 def check_decode(shape, dtype, dev, gen, n_total=None, lengths=None,
                  timed=False):
     """Kernel against plain on one input; within DECODE_TOL. Returns the
     largest absolute difference and, when ``timed``, the call's, the
-    plain version's and the library call's ms, bytes, operations and
-    the kernel's device ms."""
+    plain version's and the library call's ms, bytes, operations, the
+    device ms of a call (split kernel plus merge) and the plan with the
+    device ms of each of the two kernels."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.paged_decode import paged_decode_plain
@@ -434,11 +508,18 @@ def check_decode(shape, dtype, dev, gen, n_total=None, lengths=None,
         return err, None
     q, kp, vp, tab, lens = args
     ms = cuda_ms(lambda: ops.paged_decode(*args))
-    dev_ms = device_ms(lambda: ops.paged_decode(*args), "paged_decode")
+    parts = device_ms_per_call(lambda: ops.paged_decode(*args),
+                               ("paged_decode_split", "paged_decode_merge"))
+    split_ms, merge_ms = parts.values()
+    plan = decode_plan(shape, dtype)
+    dev_ms = None if split_ms is None or (plan["merge"] and merge_ms is None) \
+        else split_ms + (merge_ms or 0.0)
     plain_ms = cuda_ms(lambda: paged_decode_plain(*args), reps=10)
     lib_ms = cuda_ms(lambda: decode_library(*args), reps=10)
     return err, (ms, plain_ms, decode_bytes(q, kp, tab, lens),
-                 decode_ops(q, lens), dev_ms, lib_ms)
+                 decode_ops(q, lens), dev_ms, lib_ms,
+                 {"plan": plan, "device_ms_split": split_ms,
+                  "device_ms_merge": merge_ms})
 
 
 def lookup_tables(gen, nb, ways, plist, dev, fill=0.7):
@@ -504,8 +585,9 @@ def check_lookup(nb, ways, plist, n_q, dev, gen, timed=False):
 def phase_serving_kernels(dev, cases, timing, errs):
     """The decode and lookup kernels against their plain versions; the
     timed shapes are those of the full-width serving phase (decode: B =
-    5 rows of 128 pages, float32; lookup: Q = 1 on MCFG's tables) and
-    of the quick-scale one."""
+    5 rows of 128 pages, float32, and one row; lookup: Q = 1 on MCFG's
+    tables) and of the quick-scale one. Lengths 0 (every page read, V
+    averaged), 1, ragged and full, in both dtypes."""
     import torch
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -517,9 +599,9 @@ def phase_serving_kernels(dev, cases, timing, errs):
         row = {"kernel": "paged_decode", "shape": list(shape),
                "dtype": dtype, "case": tag, "max_abs_err": err}
         if t:
-            ms, plain, by, ops_, dms, lib = t
+            ms, plain, by, ops_, dms, lib, extra = t
             row.update(ms=ms, device_ms=dms, plain_ms=plain,
-                       library_ms=lib, bound_ms=bound(by, ops_)[0])
+                       library_ms=lib, bound_ms=bound(by, ops_)[0], **extra)
             timing[timed] = t
         cases.append(row)
 
@@ -538,6 +620,16 @@ def phase_serving_kernels(dev, cases, timing, errs):
     decode(full, "float32", "full width, lengths not page multiples",
            n_total=geo["n_hbm_slots"],
            lengths=[n_ctx - 5, 1, n_ctx, 17, n_ctx - 16])
+    one = (1,) + full[1:]
+    decode(one, "float32", "full width, one row",
+           n_total=geo["n_hbm_slots"], lengths=[n_ctx],
+           timed="paged_decode@b1")
+    for dtype in DECODE_TOL:
+        decode(full, dtype, "full width, lengths 0, 1, ragged, full",
+               n_total=geo["n_hbm_slots"],
+               lengths=[0, 1, n_ctx // 2 + 7, n_ctx, 33])
+        decode(one, dtype, "full width, one row, length 0",
+               n_total=geo["n_hbm_slots"], lengths=[0])
     quick = SERVING_SCALES["quick"]
     decode((quick["max_batch"], 4, m["n_kv"], m["head_dim"], m["page_size"],
             quick["pages_per_req"]), "float32", "quick scale, serving batch",
@@ -657,6 +749,10 @@ def phase_kernels(dev):
                         "paged_decode_bfloat16_rounding":
                             DECODE_BF16_ROUNDING},
           "max_abs_err": errs, "cases": cases})
+    # a line of its own: the kernels line above is long, and the end of
+    # the output is what a reader of the run gets to see
+    emit({"phase": "launch_floor", "launch_floor_ms": launch_floor_ms(),
+          "op": "x.add_(1), x a one-element float32 tensor on the card"})
     return timing, errs
 
 
@@ -1191,7 +1287,9 @@ def phase_serving(dev, child: subprocess.Popen) -> dict:
     from repro_torch.kernels import ops
     rows = {r["config"]: r for r in json.loads(BASELINE.read_text())[
         "serving"] if r["job"] == "serving_quick"}
+    decode = ops.KERNELS["paged_decode"]
     before = ops.launch_counts()
+    merges_before = decode.merge_launches
     t0 = time.time()
     quick = {}
     for config, mithril in SERVING_CONFIGS:
@@ -1233,6 +1331,9 @@ def phase_serving(dev, child: subprocess.Popen) -> dict:
             full[config]["n_mines"] = int(eng.tier._mstate.n_mines[0])
             warm = eng
     counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    # the decode's merge kernel, launched by its wrapper when a plan has
+    # more than one split (at full width)
+    counts["paged_decode_merge"] = decode.merge_launches - merges_before
     # off the counted path: the data plane against the host pages, and a
     # profiled window of the warm tier
     info["full_width"]["tier_decode_max_abs_err"] = check_tier_decode(
@@ -1312,7 +1413,9 @@ def run(children: dict, t_start: float) -> int:
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "libraries": [str(p.relative_to(ROOT)) for p in libs.values()],
-          "seconds": round(time.time() - t0, 3)})
+          "seconds": round(time.time() - t0, 3),
+          "ptxas_paged_decode": ptxas_report(
+              backend.BUILD_LOGS["paged_decode"])})
 
     timing, errs = phase_kernels(dev)
     # the main path: the parity sweeps (in child processes, whose
@@ -1326,7 +1429,10 @@ def run(children: dict, t_start: float) -> int:
     timer.close()
     by_path["serving"] = phase_serving(dev, children["serving"])
     counts = {k: sum(c[k] for c in by_path.values()) for k in KERNEL_INFO}
+    merges = by_path["serving"]["paged_decode_merge"]    # only serving
     missing = [k for k, v in counts.items() if v == 0]
+    if merges == 0:
+        missing.append("paged_decode (merge)")
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     phase_profile(dev)
@@ -1349,13 +1455,19 @@ def run(children: dict, t_start: float) -> int:
                "max_abs_err": errs[name], "ms": ms, "device_ms": dev_ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": lib_ms}
-        for tag in ("parity", "quick", "serving"):
+        if name == "paged_decode":
+            row["merge_launches"] = merges
+            row.update(timing[name][6])
+        for tag in ("parity", "quick", "b1", "serving"):
             if f"{name}@{tag}" in timing:
-                t_ms, t_plain, t_by, t_ops, t_dev = \
-                    timing[f"{name}@{tag}"][:5]
-                row[f"at_{tag}"] = {"ms": t_ms, "device_ms": t_dev,
-                                    "plain_ms": t_plain,
-                                    "bound_ms": bound(t_by, t_ops)[0]}
+                t = timing[f"{name}@{tag}"]
+                row[f"at_{tag}"] = {"ms": t[0], "device_ms": t[4],
+                                    "plain_ms": t[1],
+                                    "bound_ms": bound(t[2], t[3])[0]}
+                if len(t) > 5:
+                    row[f"at_{tag}"]["library_ms"] = t[5]
+                if len(t) > 6:
+                    row[f"at_{tag}"].update(t[6])
         kernels.append(row)
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": round(time.time() - t_start, 3)})

@@ -25,10 +25,13 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, Callable] = {}
+# what nvcc printed for each source built in this process (ptxas' per
+# kernel registers, shared memory and spills, from ``-Xptxas -v``)
+BUILD_LOGS: Dict[str, str] = {}
 
 
 def on_cuda() -> bool:
@@ -89,6 +92,7 @@ def build_all(names: Optional[Sequence[str]] = None,
     errors = []
     for n, tmp, proc in procs:
         out, _ = proc.communicate()
+        BUILD_LOGS[n] = out
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {n}.cu:\n{out}")
         else:
@@ -107,16 +111,18 @@ def library(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def c_function(lib: str, name: str, argtypes: Sequence) -> Callable:
+def c_function(lib: str, name: str, argtypes: Sequence,
+               restype=ctypes.c_int) -> Callable:
     """A C entry point of ``lib`` with its argument types bound once.
 
     Pointers and the stream are ``c_void_p`` (a bare Python int would be
-    cut to 32 bits); the entry point returns ``cudaGetLastError()``."""
+    cut to 32 bits); a launching entry point returns
+    ``cudaGetLastError()``."""
     key = (lib, name)
     if key not in _FNS:
         fn = getattr(library(lib), name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _FNS[key] = fn
     return _FNS[key]
 
@@ -124,6 +130,10 @@ def c_function(lib: str, name: str, argtypes: Sequence) -> Callable:
 def check_launch(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

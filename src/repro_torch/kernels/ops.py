@@ -34,6 +34,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    paged_decode_kernel.merge_launches = 0
 
 
 # drop-ins for ``core.mining.pairwise_codes`` ((N,S),(N,),(N,) -> (N,W)) and

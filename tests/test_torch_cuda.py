@@ -101,28 +101,39 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                       .transpose(1, 2), cnt, valid, 4, 4)
 
 
+# the shapes of tests/test_kernels.py::TestPagedDecodeKernel, then
+# llama3.2-3b's attention widths at the full-width serving batch and at
+# one row, and G = 16 at hd = 256 (the kernel's limits)
 DECODE_SHAPES = [(2, 8, 2, 32, 16, 4), (1, 4, 4, 64, 32, 8),
                  (3, 16, 8, 64, 8, 6), (2, 4, 1, 128, 64, 2),
-                 (5, 24, 8, 128, 16, 128), (2, 32, 2, 256, 16, 3)]
+                 (5, 24, 8, 128, 16, 128), (1, 24, 8, 128, 16, 128),
+                 (2, 32, 2, 256, 16, 3)]
+DECODE_TOLS = [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("b,hq,hkv,hd,ps,npg", DECODE_SHAPES)
-def test_paged_decode_kernel_matches_plain(cuda, b, hq, hkv, hd, ps, npg,
-                                           dtype, tol):
-    from repro_torch.kernels.paged_decode import (paged_decode_kernel,
-                                                  paged_decode_plain)
-    rng = np.random.default_rng(b * hq + npg)
+def decode_case(shape, dtype, lengths=None, seed=None):
+    """CPU inputs from numpy; ``lengths`` None draws them in [0, full]."""
+    b, hq, hkv, hd, ps, npg = shape
+    rng = np.random.default_rng(b * hq + npg if seed is None else seed)
     n_total = npg * b + 2
     q = torch.as_tensor(rng.standard_normal((b, hq, hd)), dtype=dtype)
     kp, vp = (torch.as_tensor(rng.standard_normal((n_total, ps, hkv, hd)),
                               dtype=dtype) for _ in range(2))
     tab = torch.as_tensor(rng.choice(n_total, (b, npg), replace=False),
                           dtype=torch.int32)
-    lens = torch.as_tensor(rng.integers(0, npg * ps + 1, b),
-                           dtype=torch.int32)
+    if lengths is None:
+        lengths = rng.integers(0, npg * ps + 1, b)
+    return q, kp, vp, tab, torch.as_tensor(lengths, dtype=torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", DECODE_TOLS)
+@pytest.mark.parametrize("b,hq,hkv,hd,ps,npg", DECODE_SHAPES)
+def test_paged_decode_kernel_matches_plain(cuda, b, hq, hkv, hd, ps, npg,
+                                           dtype, tol):
+    from repro_torch.kernels.paged_decode import (paged_decode_kernel,
+                                                  paged_decode_plain)
+    q, kp, vp, tab, lens = decode_case((b, hq, hkv, hd, ps, npg), dtype)
     want = paged_decode_plain(q, kp, vp, tab, lens)
     before = ops.launch_counts()["paged_decode"]
     got = paged_decode_kernel(*(x.to(cuda) for x in (q, kp, vp, tab, lens)))
@@ -131,6 +142,66 @@ def test_paged_decode_kernel_matches_plain(cuda, b, hq, hkv, hd, ps, npg,
     assert got.dtype == dtype
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["zero", "one", "ragged", "full"])
+@pytest.mark.parametrize("dtype,tol", DECODE_TOLS)
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+def test_paged_decode_kernel_at_lengths(cuda, shape, dtype, tol, kind):
+    """Every row at length 0 (every page read, V averaged), 1 (one page
+    read, later splits empty), not a page multiple, or full; the plan's
+    split and one split a page."""
+    from repro_torch.kernels.paged_decode import (paged_decode_kernel,
+                                                  paged_decode_plain)
+    b, _, _, _, ps, npg = shape
+    full = npg * ps
+    lengths = {"zero": [0] * b, "one": [1] * b,
+               "ragged": [full // 2 + 1 + 3 * i for i in range(b)],
+               "full": [full] * b}[kind]
+    lengths = [min(n, full) for n in lengths]
+    args = decode_case(shape, dtype, lengths)
+    want = paged_decode_plain(*args).float().numpy()
+    for pps in (None, 1):
+        got = paged_decode_kernel(*(x.to(cuda) for x in args),
+                                  pages_per_split=pps)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        np.testing.assert_allclose(got.float().cpu().numpy(), want,
+                                   rtol=tol, atol=tol, err_msg=f"pps={pps}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DECODE_SHAPES[4:6])
+def test_paged_decode_kernel_is_bit_identical_between_calls(cuda, shape):
+    """The splits merge in a fixed order: two calls give the same bits."""
+    from repro_torch.kernels.paged_decode import paged_decode_kernel
+    args = [x.to(cuda) for x in decode_case(shape, torch.float32)]
+    first = paged_decode_kernel(*args)
+    second = paged_decode_kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_paged_decode_merges_only_a_split_plan(cuda):
+    """A one-split plan launches no merge; a plan of many splits launches
+    exactly one merge a call."""
+    from repro_torch.kernels.paged_decode import (paged_decode_kernel,
+                                                  split_plan)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    quick, full = (3, 4, 2, 32, 8, 4), (5, 24, 8, 128, 16, 128)
+    assert split_plan(3, 2, 4, 8, n_sm)[1] == 1
+    assert split_plan(5, 8, 128, 16, n_sm)[1] > 1
+    for shape, merges in ((quick, 0), (full, 1)):
+        args = [x.to(cuda) for x in decode_case(shape, torch.float32)]
+        calls = paged_decode_kernel.launches
+        before = paged_decode_kernel.merge_launches
+        for _ in range(3):
+            paged_decode_kernel(*args)
+        torch.cuda.synchronize()
+        assert paged_decode_kernel.launches == calls + 3
+        assert paged_decode_kernel.merge_launches == before + 3 * merges
 
 
 @pytest.mark.cuda

@@ -10,6 +10,11 @@ made with numpy:
   ``tests/test_kernels.py::TestPagedDecodeKernel`` plus G = 3
   (llama3.2-3b's 24 query / 8 kv heads, hd 128), float32 within 2e-5
   and bfloat16 within 2e-2, the tolerances of that test;
+* the CUDA kernel's split and merge, in plain PyTorch
+  (``paged_decode_partials_plain`` + ``merge_partials_plain``), against
+  the same two, for 1, 2, an odd count not dividing the pages, and one
+  split a page, at lengths 0, 1, not a page multiple and full; and
+  ``split_plan``, a function of shapes alone;
 * ``hash_lookup_plain`` vs ``ops.prefetch_lookup`` and
   ``ref.hash_lookup_ref``, exactly, on the shapes of
   ``TestHashLookupKernel``, with Q = 1 and EMPTY (-1) queries, and
@@ -32,8 +37,11 @@ from repro_torch.core import MithrilConfig, init_state, lookup, record
 from repro_torch.kernels import ops
 from repro_torch.kernels.hash_lookup import (hash_lookup_kernel,
                                              hash_lookup_plain)
-from repro_torch.kernels.paged_decode import (paged_decode_kernel,
-                                              paged_decode_plain)
+from repro_torch.kernels.paged_decode import (MAX_PAGES_PER_SPLIT,
+                                              merge_partials_plain,
+                                              paged_decode_kernel,
+                                              paged_decode_partials_plain,
+                                              paged_decode_plain, split_plan)
 
 # (b, hq, hkv, hd, ps, npg): TestPagedDecodeKernel's four shapes, then G = 3
 DECODE_SHAPES = [(2, 8, 2, 32, 16, 4), (1, 4, 4, 64, 32, 8),
@@ -102,6 +110,134 @@ def test_paged_decode_wrapper_takes_int64_tables_on_the_cpu(rng):
                               torch.tensor(lengths))
     assert torch.equal(got, want)
     assert ops.launch_counts()["paged_decode"] == 0
+
+
+# DECODE_SHAPES plus two whose pages split into an odd count that does
+# not divide them (7 pages in 3 splits, 11 in 3)
+SPLIT_SHAPES = DECODE_SHAPES + [(2, 8, 2, 32, 16, 7),
+                                (2, 24, 8, 128, 16, 11)]
+LENGTH_KINDS = ("zero", "one", "ragged", "full")
+
+
+def split_sizes(npg):
+    """pages_per_split giving 1 split, 2 splits, an odd count that does
+    not divide npg (where one exists) and npg splits."""
+    odd = [p for p in range(2, npg) if npg % p and -(-npg // p) % 2]
+    return sorted({npg, -(-npg // 2), *odd[-1:], 1}, reverse=True)
+
+
+def kind_lengths(kind, b, ps, npg):
+    """Every row at 0 or 1, at half the context plus one (not a page
+    multiple, so later splits lie wholly past it), or full."""
+    n = {"zero": 0, "one": 1, "ragged": npg * ps // 2 + 1,
+         "full": npg * ps}[kind]
+    return np.full(b, n, np.int32)
+
+
+@pytest.mark.parametrize("kind", LENGTH_KINDS)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,hq,hkv,hd,ps,npg", SPLIT_SHAPES)
+def test_split_partials_and_merge_match_pallas_and_oracle(b, hq, hkv, hd, ps,
+                                                          npg, dtype, kind):
+    t_dtype, j_dtype, tol = DTYPES[dtype]
+    rng = np.random.default_rng(hd * npg + b)
+    q, kp, vp, tab, _ = decode_inputs(rng, b, hq, hkv, hd, ps, npg)
+    lengths = kind_lengths(kind, b, ps, npg)
+    t_args = [torch.tensor(x).to(t_dtype) for x in (q, kp, vp)] + [
+        torch.tensor(tab), torch.tensor(lengths)]
+    j_args = [jnp.asarray(x, j_dtype) for x in (q, kp, vp)] + [
+        jnp.asarray(tab), jnp.asarray(lengths)]
+    wants = [np.asarray(w, np.float32) for w in (
+        ref_ops.paged_decode(*j_args), ref.paged_decode_ref(*j_args))]
+    sizes = split_sizes(npg)
+    assert sizes[0] == npg and sizes[-1] == 1
+    for pps in sizes:
+        n_splits = -(-npg // pps)
+        m, l, acc = paged_decode_partials_plain(*t_args, pps)
+        g = hq // hkv
+        assert m.shape == l.shape == (b, hkv, n_splits, g)
+        assert acc.shape == (b, hkv, n_splits, g, hd)
+        # a split wholly past a length >= 1 is the empty partial
+        past = np.arange(n_splits) * pps * ps >= lengths[:, None]
+        past &= lengths[:, None] >= 1                       # (B, S)
+        by_split = [x.numpy().swapaxes(1, 2) for x in (m, l, acc)]
+        assert (by_split[0][past] == np.float32(-1e30)).all()
+        assert (by_split[1][past] == 0).all()
+        assert (by_split[2][past] == 0).all()
+        assert (by_split[1][~past] > 0).all()
+        got = merge_partials_plain(m, l, acc, t_dtype)
+        assert got.dtype == t_dtype and got.shape == (b, hq, hd)
+        for want in wants:
+            np.testing.assert_allclose(got.float().numpy(), want, rtol=tol,
+                                       atol=tol, err_msg=f"pps={pps}")
+
+
+def test_split_merge_of_a_fully_masked_row_averages_every_page():
+    """length <= 0 reads every page on purpose: each split's partial is
+    the sum of V over its pages (m = -1e30, l = its positions), and the
+    merge gives the uniform average over all pages, padding included."""
+    rng = np.random.default_rng(7)
+    q, kp, vp, tab, _ = decode_inputs(rng, 2, 8, 2, 32, 16, 4)
+    lengths = np.array([0, -3], np.int32)
+    args = [torch.tensor(x) for x in (q, kp, vp, tab, lengths)]
+    m, l, acc = paged_decode_partials_plain(*args, 1)
+    assert (m == -1e30).all() and (l == 16).all()
+    got = merge_partials_plain(m, l, acc, torch.float32)
+    for row in range(2):
+        mean_v = vp[tab[row]].reshape(-1, 2, 32).mean(0)
+        np.testing.assert_allclose(got[row].numpy(),
+                                   np.repeat(mean_v, 4, axis=0), rtol=2e-5,
+                                   atol=2e-5)
+
+
+def test_merge_gives_an_empty_split_weight_zero():
+    """An empty partial (m = -1e30, l = 0, acc = 0) beside live ones
+    leaves the merge as it is without it, whatever its position."""
+    gen = torch.Generator().manual_seed(3)
+    m = torch.randn((1, 2, 3, 4), generator=gen)
+    l = torch.rand((1, 2, 3, 4), generator=gen) + 0.5
+    acc = torch.randn((1, 2, 3, 4, 8), generator=gen)
+    want = merge_partials_plain(m, l, acc, torch.float32)
+    for at in range(4):
+        def ins(x, v):
+            return torch.cat([x[:, :, :at], v, x[:, :, at:]], 2)
+        got = merge_partials_plain(
+            ins(m, torch.full((1, 2, 1, 4), -1e30)),
+            ins(l, torch.zeros((1, 2, 1, 4))),
+            ins(acc, torch.zeros((1, 2, 1, 4, 8))), torch.float32)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_split_plan_is_a_function_of_shapes_alone():
+    # llama3.2-3b's widths on 132 SMs: the full-width batch and one row
+    assert split_plan(5, 8, 128, 16, 132) == (10, 13)
+    assert split_plan(1, 8, 128, 16, 132) == (4, 32)
+    # the quick serving shape fits one split: no merge launch
+    assert split_plan(3, 2, 4, 8, 132) == (4, 1)
+    for b, hkv, npg, ps, n_sm in [(1, 1, 1, 1, 1), (7, 3, 100_000, 8, 132),
+                                  (64, 8, 3, 16, 132), (2, 4, 9, 64, 16)]:
+        pps, n_splits = split_plan(b, hkv, npg, ps, n_sm)
+        assert 1 <= pps <= min(npg, MAX_PAGES_PER_SPLIT)
+        assert n_splits == -(-npg // pps) and (n_splits - 1) * pps < npg
+    with pytest.raises(TypeError):
+        split_plan(torch.tensor(5), 8, 128, 16, 132)
+    with pytest.raises(TypeError):
+        split_plan(5, 8, 128, 16, torch.tensor([132]))
+    with pytest.raises(TypeError):
+        split_plan(5, 8, np.int32(128), 16, 132)
+
+
+def test_paged_decode_wrapper_rejects_unaligned_rows():
+    """The kernel copies pool rows 16 bytes at a time (meta device: the
+    checks run before any launch)."""
+    meta = dict(device="meta")
+    tab = torch.zeros((2, 3), dtype=torch.int32, **meta)
+    lens = torch.zeros((2,), dtype=torch.int32, **meta)
+    for hd, dtype in [(30, torch.float32), (36, torch.bfloat16)]:
+        q = torch.zeros((2, 4, hd), dtype=dtype, **meta)
+        pool = torch.zeros((6, 4, 2, hd), dtype=dtype, **meta)
+        with pytest.raises(ValueError, match="16 bytes"):
+            paged_decode_kernel(q, pool, pool, tab, lens)
 
 
 def lookup_tables(rng, nb, w, p):
