@@ -16,15 +16,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``tests/test_kernels.py::TestPagedDecodeKernel`` and at llama3.2-3b's
    attention widths (5 rows and one row; lengths 0, 1, ragged and
    full), float32 within 2e-5 and bfloat16 within 2e-2; the lookup
-   kernel exactly, Q = 1 and EMPTY queries included. ``ms`` is the
-   median CUDA-event time of one call as the main path makes it
-   (wrapper included), ``device_ms`` the kernel's own time in a
-   ``torch.profiler`` trace (decode: split kernel plus merge, with the
-   split plan), ``bound_ms`` the least bytes (or operations) of the
-   same call over the card's peak, ``library_ms`` one PyTorch call
-   computing the same function, where there is one;
+   kernel exactly, Q = 1 and EMPTY queries included; the serving tier's
+   miss launch (record event + probe, ``mithril_miss_step``) exactly, at
+   the serving tables, need = 0 and 1. ``ms`` is the median CUDA-event
+   time of one call as the main path makes it (wrapper included; for
+   the miss launch the host clock around the tier's whole call, the wait
+   for the result included), ``host_ms`` (record, lookup) the host
+   clock of a call that is not waited for, ``device_ms`` the kernel's
+   own time in a ``torch.profiler`` trace (decode: split kernel plus
+   merge, with the split plan), ``bound_ms`` the least bytes (or
+   operations) of the same call over the card's peak, ``library_ms``
+   one PyTorch call computing the same function, where there is one;
    ``launch_floor_ms`` is the device time of one PyTorch elementwise op
-   on a one-element tensor;
+   on a one-element tensor, and ``floor_ratio`` a kernel's device time
+   over it;
 3. parity — the port's ``sweep_scheduled`` over the 16-trace quick
    corpus (4000 requests) for the 9 labels of the benchmark grid at
    capacity 512, in three processes at once; each label's rounded hit
@@ -46,12 +51,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    request, 704 device slots, 16,384 host pages), whose counters must
    equal a CPU run of the port in a child process (started with the
    script), and whose decode through the tier must match the plain
-   decode over the host pages.
+   decode over the host pages; each MITHRIL run must launch the miss
+   kernel once per demand fetch, and the line gives the host time a
+   miss takes outside mining.
 
 The main path is phases 3, 4 and 5: the launch counters are zeroed just
 before the parity sweeps and read after each of the later phases, and
-each of the five kernels (and the decode's merge) must have launched
-on one of them; the ``kernels`` line gives the launches of each phase.
+each of the five kernels, the serving tier's miss launch and the
+decode's merge must have launched on one of them; the ``kernels`` line
+gives the launches of each phase.
 (At the paper's sizes the 50k request traces never fill the
 65,536-block cache, so the real-size sweep records every miss but never
 mines; the batched mining kernel runs in parity only, and is timed at
@@ -102,7 +110,13 @@ KERNEL_INFO = {
     "paged_decode": (
         "src/repro_torch/kernels/csrc/paged_decode.cu",
         "src/repro/kernels/paged_decode.py:104"),
+    # the serving tier's miss: the record event and the lookup of its page
+    # in one launch
+    "mithril_miss_step": (
+        "src/repro_torch/kernels/csrc/mithril_record.cu",
+        "src/repro/kernels/mithril_record.py:199"),
 }
+ALSO_REPLACES = {"mithril_miss_step": "src/repro/kernels/hash_lookup.py:62"}
 
 
 def emit(obj) -> None:
@@ -140,6 +154,22 @@ def cuda_ms(fn, reps: int = 30, warm: int = 3) -> float:
         marks.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in marks)
+
+
+def host_ms(fn, reps: int = 200, warm: int = 5) -> float:
+    """Median host-clock milliseconds of one call of ``fn``: what the
+    host spends on it, the wait included for a call that waits for its
+    result (the serving tier's miss does), the enqueue alone otherwise."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        marks.append(time.perf_counter() - t)
+    return statistics.median(marks) * 1e3
 
 
 def profiled_kernels(fn, reps: int):
@@ -214,6 +244,11 @@ def ptxas_report(log: str) -> list:
                 if m:
                     row[key] = int(m.group(1))
     return rows
+
+
+def floor_ratio(dev_ms, floor):
+    """A kernel's device time over the launch floor (None unmeasured)."""
+    return dev_ms / floor if dev_ms and floor else None
 
 
 def bound(bytes_: float, ops: float):
@@ -313,7 +348,8 @@ def check_record(cfg, lanes, dev, rng, enabled_frac=1.0, steps=20):
     """Run kernel and plain on two copies of one state; exact equality
     after every event. Returns the kernel's and the plain version's ms,
     the mean least bytes and the operations of a timed event, the
-    kernel's device ms and the largest absolute difference seen."""
+    kernel's device ms, the largest absolute difference seen and the
+    host-clock ms of a call (the launch not waited for)."""
     import torch
     from repro_torch.kernels.mithril_record import (record_step_kernel,
                                                     record_step_plain)
@@ -357,7 +393,8 @@ def check_record(cfg, lanes, dev, rng, enabled_frac=1.0, steps=20):
     dev_ms = device_ms(kern, "record_kernel")
     plain_ms = cuda_ms(lambda: record_step_plain(
         blk, en, *(getattr(b, f) for f in RECORD_LEAVES)))
-    return ms, plain_ms, by, record_ops(cfg, int(en.sum())), dev_ms, err
+    return (ms, plain_ms, by, record_ops(cfg, int(en.sum())), dev_ms, err,
+            host_ms(kern, reps=100))
 
 
 def check_pairwise(lanes, n, s, delta, window, dev, rng, r_sup=4,
@@ -573,16 +610,144 @@ def check_lookup(nb, ways, plist, n_q, dev, gen, timed=False):
              f"P={plist}, Q={n_q})")
     if not timed:
         return err, None
-    ms = cuda_ms(lambda: ops.prefetch_lookup(queries, pf_key, pf_vals))
-    dev_ms = device_ms(lambda: ops.prefetch_lookup(queries, pf_key, pf_vals),
-                       "hash_lookup")
+    def kern():
+        return ops.prefetch_lookup(queries, pf_key, pf_vals)
+    ms = cuda_ms(kern)
+    dev_ms = device_ms(kern, "hash_lookup")
     plain_ms = cuda_ms(lambda: hash_lookup_plain(queries, pf_key, pf_vals))
     # operations: the hash (about 12 integer ops) and W compares a query
     return err, (ms, plain_ms, lookup_bytes(queries, pf_key, pf_vals),
-                 n_q * (12.0 + ways), dev_ms, None)
+                 n_q * (12.0 + ways), dev_ms, None,
+                 {"host_ms": host_ms(kern, reps=100)})
 
 
-def phase_serving_kernels(dev, cases, timing, errs):
+def serving_pages(rng, n_events, n_sets=12, universe=1024):
+    """Misses of a multi-tenant tier: one tenant's 4 working-set pages
+    in order at a time, now and then a stray page or an EMPTY (-1) page."""
+    sets = [rng.choice(universe, 4, replace=False) for _ in range(n_sets)]
+    out = []
+    while len(out) < n_events:
+        out.extend(int(p) for p in sets[rng.integers(n_sets)])
+        if rng.random() < 0.2:
+            out.append(int(rng.integers(universe)))
+        if rng.random() < 0.03:
+            out.append(-1)
+    return out[:n_events]
+
+
+def warm_miss_state(cfg, dev, rng, events=400):
+    """A one-lane state after ``events`` misses of a tier (the plain
+    version, mining when the table fills): live recording and mining
+    rows, associations in the prefetch table."""
+    from repro_torch.core import init_state, maybe_mine
+    from repro_torch.kernels.mithril_record import miss_step_plain
+    st = init_state(cfg, dev)
+    for page in serving_pages(rng, events):
+        if int(miss_step_plain(page, st, cfg.mine_rows)[0]):
+            maybe_mine(cfg, st)
+    return st
+
+
+def miss_event_bytes(cfg, st, page) -> float:
+    """Least bytes of one miss on ``st``, which the plain version then
+    advances in place: the record event's (``record_event_bytes``, less
+    the flag and the block, which come by value), the probe's PW keys and
+    a hit way's P values, and the 1 + P ints of the result."""
+    import torch
+    from repro_torch.core.hashindex import bucket_index
+    dev = st.ts.device
+    blk = torch.tensor([page], dtype=torch.int32, device=dev)
+    row = st.pf_key[0, bucket_index(blk, cfg.pf_buckets)]
+    found = bool((row == blk[:, None]).any())
+    by = record_event_bytes(cfg, st, blk,
+                            torch.ones(1, dtype=torch.int32, device=dev))
+    return by - 8.0 + 4.0 * (cfg.pf_ways + cfg.prefetch_list * found
+                             + 1 + cfg.prefetch_list)
+
+
+def check_miss(cfg, dev, rng, events=300):
+    """The serving tier's miss launch against ``miss_step_plain`` on
+    copies of one warm state, exactly: the result and every record leaf
+    after every event, the tier's own call (``ops.MissStep``) on a third
+    copy; all copies mine when need is 1. Then, on one page with
+    candidates: the tier's call on the host clock (``ms``, the wait
+    included), the launch alone (CUDA events, and its device time), the
+    plain version with its result read on the host, and the two ways to
+    bring the result home in turns (mapped, async copy, async copy,
+    mapped): the kernel storing to pinned memory through its mapping,
+    or to a device buffer that an async copy moves to pinned memory."""
+    import torch
+    from repro_torch.core import maybe_mine
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mithril_record import (miss_step_kernel,
+                                                    miss_step_plain)
+    base = warm_miss_state(cfg, dev, rng)
+    a, b, c = (type(base)(*(x.clone() for x in base)) for _ in range(3))
+    out = torch.empty(1 + cfg.prefetch_list, dtype=torch.int32,
+                      pin_memory=True)
+    step = ops.MissStep(cfg.mine_rows, cfg.prefetch_list, dev)
+    err, needs, hit_page = 0, 0, None
+    for page in serving_pages(rng, events):
+        want = miss_step_plain(page, b, cfg.mine_rows).cpu()
+        miss_step_kernel(page, a, cfg.mine_rows, out)
+        need, cand = step(c, page)
+        torch.cuda.synchronize()
+        err = max(err, max_err(out, want))
+        same = [f for f in RECORD_LEAVES
+                if torch.equal(getattr(a, f), getattr(b, f))
+                and torch.equal(getattr(c, f), getattr(b, f))]
+        if not torch.equal(out, want) or need != bool(want[0]) or \
+                cand != [x for x in want[1:].tolist() if x >= 0] or \
+                len(same) != len(RECORD_LEAVES):
+            fail(f"miss kernel differs from plain at page {page}: "
+                 f"{out.tolist()} vs {want.tolist()}, tier {need, cand}")
+        needs += need
+        if cand:
+            hit_page = page
+        if need:
+            for st in (a, b, c):
+                maybe_mine(cfg, st)
+    if not needs or hit_page is None:
+        fail(f"miss check: {needs} events mined, candidates "
+             f"{'seen' if hit_page is not None else 'never seen'}")
+    page, reps, warm = hit_page, 200, 5
+    d = type(c)(*(x.clone() for x in c))
+    by = statistics.mean(miss_event_bytes(cfg, d, page)
+                         for _ in range(reps + warm))
+    del d
+    ms = host_ms(lambda: step(c, page), reps, warm)
+
+    def launch():
+        miss_step_kernel(page, a, cfg.mine_rows, out)
+    launch_ms = cuda_ms(launch)
+    dev_ms = device_ms(launch, "miss_kernel")
+    done, host = torch.cuda.Event(), out.numpy()
+    dev_out = torch.empty(out.shape, dtype=out.dtype, device=dev)
+
+    def mapped():
+        miss_step_kernel(page, a, cfg.mine_rows, out)
+        done.record()
+        done.synchronize()
+        return host.tolist()
+
+    def async_copy():
+        miss_step_kernel(page, a, cfg.mine_rows, dev_out)
+        out.copy_(dev_out, non_blocking=True)
+        done.record()
+        done.synchronize()
+        return host.tolist()
+    turns = [(f.__name__, host_ms(f, reps, warm))
+             for f in (mapped, async_copy, async_copy, mapped)]
+    plain_ms = host_ms(lambda: miss_step_plain(page, b, cfg.mine_rows)
+                       .tolist(), 50, 3)
+    return {"ms": ms, "plain_ms": plain_ms, "bytes": by,
+            "ops": record_ops(cfg, 1) + 12 + cfg.pf_ways,
+            "device_ms": dev_ms, "launch_ms": launch_ms, "err": err,
+            "events": events, "need_events": needs,
+            "transport_ms_in_turns": turns}
+
+
+def phase_serving_kernels(dev, cases, timing, errs, floor):
     """The decode and lookup kernels against their plain versions; the
     timed shapes are those of the full-width serving phase (decode: B =
     5 rows of 128 pages, float32, and one row; lookup: Q = 1 on MCFG's
@@ -644,9 +809,10 @@ def phase_serving_kernels(dev, cases, timing, errs):
         row = {"kernel": "hash_lookup", "NB": nb, "W": ways, "P": plist,
                "Q": n_q, "case": tag, "max_abs_err": err}
         if t:
-            ms, plain, by, ops_, dms, _ = t
+            ms, plain, by, ops_, dms, _, extra = t
             row.update(ms=ms, device_ms=dms, plain_ms=plain,
-                       bound_ms=bound(by, ops_)[0])
+                       bound_ms=bound(by, ops_)[0],
+                       floor_ratio=floor_ratio(dms, floor), **extra)
             timing[timed] = t
         cases.append(row)
 
@@ -656,6 +822,7 @@ def phase_serving_kernels(dev, cases, timing, errs):
     for nb, ways, plist, n_q, tag in [
             (64, 4, 2, 64, "test shape"), (256, 4, 3, 100, "test shape"),
             (32, 2, 2, 7, "test shape"), (512, 4, 3, 1000, "Q = 1000"),
+            (64, 48, 33, 500, "W = 48, P = 33: two chunks of a warp"),
             (16384, 4, 2, 100_000, "paper tables, Q = 100,000")]:
         for _ in range(3):
             lookup(nb, ways, plist, n_q, tag)
@@ -674,16 +841,18 @@ def phase_kernels(dev):
     cases, timing = [], {}
     errs = {k: 0 for k in KERNEL_INFO}
     t0 = time.time()
+    floor = launch_floor_ms()
 
     def record(cfg, lanes, tag, frac=1.0, timed=None):
-        ms, plain, by, ops, dms, err = check_record(cfg, lanes, dev, rng,
-                                                    enabled_frac=frac)
+        ms, plain, by, ops, dms, err, hms = check_record(
+            cfg, lanes, dev, rng, enabled_frac=frac)
         errs["mithril_record"] = max(errs["mithril_record"], err)
         cases.append({"kernel": "mithril_record", "L": lanes, "case": tag,
-                      "ms": ms, "device_ms": dms, "plain_ms": plain,
-                      "bound_ms": bound(by, ops)[0]})
+                      "ms": ms, "host_ms": hms, "device_ms": dms,
+                      "plain_ms": plain, "bound_ms": bound(by, ops)[0],
+                      "floor_ratio": floor_ratio(dms, floor)})
         if timed:
-            timing[timed] = (ms, plain, by, ops, dms)
+            timing[timed] = (ms, plain, by, ops, dms, None, {"host_ms": hms})
 
     for lanes in (1, 16, 135):
         record(P, lanes, "paper tables",
@@ -698,6 +867,9 @@ def phase_kernels(dev):
     mc = serving_mcfg()
     record(mc, 1, "serving tables (MCFG)", timed="mithril_record@serving")
     record(mc, 1, "serving tables, mixed enabled", frac=0.5)
+    # every lane disabled: the kernel leaves after its first round of
+    # loads, so its device time shows what the rest of the body costs
+    record(mc, 1, "serving tables, all disabled", frac=0.0)
 
     def pairwise(lanes, n, s, delta, w, tag, r_sup=4, vf=0.8, serial=False,
                  timed=None):
@@ -741,19 +913,33 @@ def phase_kernels(dev):
         for serial in (False, True):
             pairwise(lanes, n_, s_, d_, w_, tag, r_sup=2, vf=vf,
                      serial=serial)
-    phase_serving_kernels(dev, cases, timing, errs)
+    phase_serving_kernels(dev, cases, timing, errs, floor)
+    # the serving tier's miss at MCFG's tables
+    t = check_miss(serving_mcfg(), dev, rng)
+    errs["mithril_miss_step"] = t["err"]
+    extra = {k: t[k] for k in ("launch_ms", "events", "need_events",
+                                "transport_ms_in_turns")}
+    cases.append(dict({"kernel": "mithril_miss_step",
+                       "case": "serving tables (MCFG), one lane",
+                       "ms": t["ms"], "device_ms": t["device_ms"],
+                       "plain_ms": t["plain_ms"],
+                       "bound_ms": bound(t["bytes"], t["ops"])[0],
+                       "floor_ratio": floor_ratio(t["device_ms"], floor)},
+                      **extra))
+    timing["mithril_miss_step"] = (t["ms"], t["plain_ms"], t["bytes"],
+                                   t["ops"], t["device_ms"], None, extra)
     emit({"phase": "kernels", "seconds": round(time.time() - t0, 3),
           "exact": ["mithril_record", "mithril_pairwise_batched",
-                    "mithril_pairwise", "hash_lookup"],
+                    "mithril_pairwise", "hash_lookup", "mithril_miss_step"],
           "tolerance": {"paged_decode": DECODE_TOL,
                         "paged_decode_bfloat16_rounding":
                             DECODE_BF16_ROUNDING},
           "max_abs_err": errs, "cases": cases})
     # a line of its own: the kernels line above is long, and the end of
     # the output is what a reader of the run gets to see
-    emit({"phase": "launch_floor", "launch_floor_ms": launch_floor_ms(),
+    emit({"phase": "launch_floor", "launch_floor_ms": floor,
           "op": "x.add_(1), x a one-element float32 tensor on the card"})
-    return timing, errs
+    return timing, errs, floor
 
 
 # ---------------------------------------------------------------------------
@@ -1231,8 +1417,9 @@ class HostSpans:
 def serving_spans() -> HostSpans:
     """The serving step's host work: the demand pass and, inside it, the
     installs (eviction + the two page copies) and MITHRIL on each miss
-    (record, mining check, lookup), with the mining runs inside that;
-    the decode launch."""
+    (the miss launch and its wait; after a full mining table the mining
+    run and a lookup), with the mining runs inside that; the decode
+    launch."""
     from repro_torch.cache.tiered import TieredKVCache
     from repro_torch.core import mithril
     return HostSpans({
@@ -1291,14 +1478,19 @@ def phase_serving(dev, child: subprocess.Popen) -> dict:
     before = ops.launch_counts()
     merges_before = decode.merge_launches
     t0 = time.time()
-    quick = {}
+    quick, miss_bad = {}, []
     for config, mithril in SERVING_CONFIGS:
+        c0 = ops.launch_counts()["mithril_miss_step"]
         m, _ = serve(SERVING_SCALES["quick"], SERVING_PAGE, 4, mithril, dev)
         equal = all(m[k] == rows[config][k] for k in SERVING_KEYS)
         quick[config] = {k: m[k] for k in SERVING_KEYS}
+        misses = ops.launch_counts()["mithril_miss_step"] - c0
         quick[config].update(equal=equal,
                              throughput_tok_s=m["throughput_tok_s"],
-                             wall_seconds=m["wall_seconds"])
+                             wall_seconds=m["wall_seconds"],
+                             miss_launches=misses)
+        if misses != (m["tier"]["demand_fetches"] if mithril else 0):
+            miss_bad.append(f"quick {config}")
         if not equal:
             quick[config]["want"] = {k: rows[config][k] for k in SERVING_KEYS}
     info = {"phase": "serving", "numpy": np.__version__,
@@ -1327,8 +1519,18 @@ def phase_serving(dev, child: subprocess.Popen) -> dict:
                                 torch.cuda.max_memory_allocated()),
                             launches={k: v - c0[k] for k, v in
                                       ops.launch_counts().items()})
+        misses = full[config]["launches"]["mithril_miss_step"]
+        if misses != (m["tier"]["demand_fetches"] if mithril else 0):
+            miss_bad.append(f"full width {config}")
         if mithril:
             full[config]["n_mines"] = int(eng.tier._mstate.n_mines[0])
+            # a miss's host time outside the mining runs (record, probe,
+            # the wait for the result and the lookup after a run)
+            on_miss, mine = host_spans["mithril_on_miss"], host_spans["mine"]
+            full[config]["host_ms_a_miss_outside_mining"] = (
+                (on_miss["seconds"] - mine["seconds"])
+                / max(1, on_miss["calls"]) * 1e3)
+            full[config]["miss_launches"] = misses
             warm = eng
     counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
     # the decode's merge kernel, launched by its wrapper when a plan has
@@ -1360,6 +1562,9 @@ def phase_serving(dev, child: subprocess.Popen) -> dict:
     bad = [c for c, v in full.items() if not v["cpu_equal"]]
     if bad:
         fail(f"serving: full-width {bad} differ from the CPU run")
+    if miss_bad:
+        fail(f"serving: miss launches differ from the demand fetches in "
+             f"{miss_bad}")
     return counts
 
 
@@ -1417,7 +1622,7 @@ def run(children: dict, t_start: float) -> int:
           "ptxas_paged_decode": ptxas_report(
               backend.BUILD_LOGS["paged_decode"])})
 
-    timing, errs = phase_kernels(dev)
+    timing, errs, floor = phase_kernels(dev)
     # the main path: the parity sweeps (in child processes, whose
     # counters start at zero), the real-size sweep and the serving runs,
     # counted from zero here to the end of the serving phase
@@ -1454,16 +1659,21 @@ def run(children: dict, t_start: float) -> int:
                "launches_by_path": {p: c[name] for p, c in by_path.items()},
                "max_abs_err": errs[name], "ms": ms, "device_ms": dev_ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": lib_ms}
+               "bound_by": bound_by, "library_ms": lib_ms,
+               "floor_ratio": floor_ratio(dev_ms, floor)}
+        if name in ALSO_REPLACES:
+            row["also_replaces"] = ALSO_REPLACES[name]
         if name == "paged_decode":
             row["merge_launches"] = merges
+        if len(timing[name]) > 6:
             row.update(timing[name][6])
         for tag in ("parity", "quick", "b1", "serving"):
             if f"{name}@{tag}" in timing:
                 t = timing[f"{name}@{tag}"]
                 row[f"at_{tag}"] = {"ms": t[0], "device_ms": t[4],
                                     "plain_ms": t[1],
-                                    "bound_ms": bound(t[2], t[3])[0]}
+                                    "bound_ms": bound(t[2], t[3])[0],
+                                    "floor_ratio": floor_ratio(t[4], floor)}
                 if len(t) > 5:
                     row[f"at_{tag}"]["library_ms"] = t[5]
                 if len(t) > 6:

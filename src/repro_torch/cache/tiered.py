@@ -135,6 +135,10 @@ class TieredKVCache:
         self.mith_cfg = mithril_cfg
         if mithril_cfg is not None:
             self._mstate = mithril.init(mithril_cfg, dev)
+            self._miss = ops.MissStep(mithril_cfg.mine_rows,
+                                      mithril_cfg.prefetch_list, dev)
+            # the page of a miss that mined, for the lookup after the run
+            self._query = torch.zeros(1, dtype=torch.int32, device=dev)
 
     # -- tier management ----------------------------------------------------
 
@@ -177,16 +181,20 @@ class TieredKVCache:
         return s
 
     def _mithril_on_miss(self, page: int) -> List[int]:
-        """Record the miss (fused record kernel, then the mining trigger)
-        and probe the prefetch table for the page's candidates."""
+        """Record the miss and probe the prefetch table for the page's
+        candidates: one launch and one wait on the card
+        (``ops.MissStep``). When the event filled the mining table, mine
+        and probe the mined table, the reference's order (record and
+        ``maybe_mine``, then ``lookup``)."""
         if self.mith_cfg is None:
             return []
         st = self._mstate
-        blk = torch.tensor([page], dtype=torch.int32, device=self.device)
-        mithril.record_event_batched(self.mith_cfg, st, blk, True,
-                                     fused_fn=ops.mithril_record_fused)
+        need, cand = self._miss(st, page)
+        if not need:
+            return cand
         mithril.maybe_mine(self.mith_cfg, st)
-        cand = ops.prefetch_lookup(blk, st.pf_key[0], st.pf_vals[0])
+        self._query.fill_(page)     # a fill launch: no host-to-device copy
+        cand = ops.prefetch_lookup(self._query, st.pf_key[0], st.pf_vals[0])
         return [c for c in cand[0].tolist() if c >= 0]
 
     def access(self, pages: np.ndarray) -> np.ndarray:

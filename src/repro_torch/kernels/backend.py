@@ -7,8 +7,11 @@ only an explicit ``device="cpu"`` runs on the CPU (the tests pass it).
 The kernels are CUDA C++ for ``sm_90a`` under ``kernels/csrc/``. Each
 source builds on first use into ``build/kernels/`` at the repository
 root with ``nvcc -shared`` into a library with a plain C interface,
-loaded with ``ctypes``: nothing is prebuilt or downloaded.
-:func:`build_all` starts one ``nvcc`` per source, all at once.
+loaded with ``ctypes``: nothing is prebuilt or downloaded; a library
+older than its source or than a header the sources share (``*.cuh``)
+is built again. :func:`build_all` starts one ``nvcc`` per source, all
+at once. Launchers check their arguments in full once per set of
+tensors (:class:`Bound`).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import weakref
 from pathlib import Path
 from typing import Callable, Dict, Optional, Sequence, Union
 
@@ -71,8 +75,12 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
-    lib, src = _lib_path(name), CSRC / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    """No library yet, or one older than its source or a shared header."""
+    lib = _lib_path(name)
+    if not lib.exists():
+        return True
+    inputs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build_all(names: Optional[Sequence[str]] = None,
@@ -136,8 +144,47 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_of(t: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s card,
+    through the private accessor Triton's launcher uses where it exists
+    (no ``Stream`` object is built), else the public path."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is not None:
+        return get(t.device.index)
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+class Bound:
+    """A launcher's arguments, built once per set of tensors.
+
+    ``bind(*tensors, *extra)`` checks every tensor in full (raising on
+    what the kernel does not take) and returns the launch arguments
+    (pointers and dimensions). A later call re-checks only that it got
+    the same tensor objects, at the addresses they were bound with, and
+    the same ``extra``; otherwise it binds, so checks in full, again. A
+    tensor swapped in (another object, a reshaped or retyped view among
+    them) therefore raises as it did when every call checked it. The
+    binding holds weak references: it keeps no tensor alive, and a
+    freed tensor's successor is bound anew. The binding is one tuple,
+    read and replaced whole, so callers in several threads each get
+    the arguments of their own tensors.
+    """
+
+    def __init__(self, bind: Callable):
+        self._bind = bind
+        self._entry = None          # (weak refs, pointers, extra, args)
+        self.binds = 0
+
+    def __call__(self, tensors: Sequence[torch.Tensor], *extra):
+        entry = self._entry
+        ptrs = tuple(map(torch.Tensor.data_ptr, tensors))
+        if entry is not None and ptrs == entry[1] and extra == entry[2] \
+                and all(r() is t for r, t in zip(entry[0], tensors)):
+            return entry[3]
+        args = self._bind(*tensors, *extra)
+        self._entry = (tuple(map(weakref.ref, tensors)), ptrs, extra, args)
+        self.binds += 1
+        return args
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -13,51 +13,36 @@
 //
 // What bounds it on an H100: nothing but latency. Each query reads one
 // bucket row of W keys and, on a hit, P values of one way: a dependent
-// chain of two loads of a few bytes. On the serving path Q = 1, so one
-// launch of one thread is the whole call. One thread per query reads
-// the row straight from device memory; the tables stay where they are
-// (the Pallas BlockSpecs copy both whole tables into VMEM per grid
-// step, which Hopper does not need), and no padding of Q is needed.
+// chain of two loads of a few bytes (key row -> values). So one warp per
+// query: the ways sit across the lanes (32 at a time for W > 32), a ballot
+// and __ffs pick the first hit way, and lanes p < P copy the values (32 at
+// a time for P > 32). The tables stay where they are (the Pallas
+// BlockSpecs copy both whole tables into VMEM per grid step, which Hopper
+// does not need), and any Q is taken without padding. On the serving path
+// the tier probes inside its miss launch (mithril_record.cu) and calls
+// this kernel only after a mining run.
 
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "mithril_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ uint32_t mix32(uint32_t k) {
-  k ^= k >> 16;
-  k *= 0x7FEB352Du;
-  k ^= k >> 15;
-  k *= 0x846CA68Bu;
-  k ^= k >> 16;
-  return k;
-}
+constexpr int kWarpsPerBlock = 4;
 
 __global__ void hash_lookup_kernel(const int* __restrict__ queries,
                                    const int* __restrict__ keys,
                                    const int* __restrict__ vals,
                                    int* __restrict__ out, int n_q, int nb,
                                    int ways, int plist) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_q) return;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (i >= n_q) return;                         // whole warp leaves together
   const int q = queries[i];
-  const int b = static_cast<int>(mix32(static_cast<uint32_t>(q)) &
-                                 static_cast<uint32_t>(nb - 1));
-  const int* row = keys + static_cast<size_t>(b) * ways;
-  int way = -1;
-  for (int w = 0; w < ways; ++w) {
-    if (row[w] == q) {                      // first hit way, as argmax
-      way = w;
-      break;
-    }
-  }
+  const int b = mithril::bucket_of(q, nb);
+  const int way = mithril::warp_first_hit(keys + static_cast<size_t>(b) * ways,
+                                          ways, q, lane);
+  const int* v = vals + (static_cast<size_t>(b) * ways + way) * plist;
   int* o = out + static_cast<size_t>(i) * plist;
-  if (way < 0) {
-    for (int p = 0; p < plist; ++p) o[p] = -1;
-  } else {
-    const int* v = vals + (static_cast<size_t>(b) * ways + way) * plist;
-    for (int p = 0; p < plist; ++p) o[p] = v[p];
-  }
+  for (int p = lane; p < plist; p += 32) o[p] = way >= 0 ? v[p] : mithril::kEmpty;
 }
 
 }  // namespace
@@ -66,9 +51,9 @@ extern "C" int mithril_hash_lookup(const int* queries, const int* keys,
                                    const int* vals, int* out, int n_q,
                                    int nb, int ways, int plist,
                                    void* stream) {
-  const int threads = 128;
-  const int blocks = (n_q + threads - 1) / threads;
-  hash_lookup_kernel<<<blocks, threads, 0,
+  const int warps = n_q < kWarpsPerBlock ? n_q : kWarpsPerBlock;
+  const int blocks = (n_q + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  hash_lookup_kernel<<<blocks, 32 * warps, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       queries, keys, vals, out, n_q, nb, ways, plist);
   return static_cast<int>(cudaGetLastError());

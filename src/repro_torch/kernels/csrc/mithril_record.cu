@@ -1,146 +1,141 @@
-// The fused MITHRIL record event, one per lane, updated in place.
+// The fused MITHRIL record event, one per lane, updated in place; and the
+// serving tier's miss: one lane's record event with the prefetch-table
+// probe of the same block, in one launch.
 //
 // Replaces the Pallas kernel
 //   src/repro/kernels/mithril_record.py::record_step_kernel
 //     (body _record_kernel; wrapper src/repro/kernels/ops.py::mithril_record_fused).
+// The miss launch also does the work of
+//   src/repro/kernels/hash_lookup.py::hash_lookup_kernel
+// for the one query of a miss (the tier's record + lookup,
+// src/repro/cache/tiered.py::_mithril_on_miss).
 //
 // Per lane: mix32 bucket probe of the (NB, W) recording table, hit way or
-// victim (first EMPTY way, else the first way of minimal rec_age), the
-// R-slot timestamp stamp, migration to the mining table at cnt >= R, the
+// victim, the R-slot stamp, migration to the mining table at cnt >= R, the
 // S-slot append / frequent mark of a mining-resident block, and the
-// mine_fill / ts bump. enabled == 0 leaves every byte as it was. Bit for
-// bit src/repro/core/mithril.py::record_event.
+// mine_fill / ts bump (mithril_common.cuh). enabled == 0 leaves every byte
+// as it was. Bit for bit src/repro/core/mithril.py::record_event.
 //
-// What bounds it on an H100: per lane it touches one bucket (5 x W ints),
-// one R-slot row and one S-slot mining row, a few hundred bytes, so at
-// the sweep's 16..135 lanes the launch itself (a few microseconds) is the
-// bound, not bytes or operations. The design therefore does the least
-// per launch: one warp per lane with the W ways across the warp's
-// threads (ballots give the first hit / first empty way, a warp min the
-// oldest way), then one thread writes the touched rows in place. The
-// Pallas kernel's whole-table copy-through (needed only because its
-// blocks lived in VMEM) is gone: nothing else of the tables is read.
+// What bounds it on an H100: latency. An event touches one bucket (5 x W
+// ints), one R-slot row and one S-slot mining row, a few hundred bytes; the
+// launch (about a microsecond on the card) and the chain of dependent
+// loads are the whole device time, and the host's work around the launch
+// costs more than both. So: one warp per lane, the ways across the warp,
+// three rounds of dependent loads (block -> bucket row -> mining row), and
+// every table updated in place (the Pallas kernel's whole-table
+// copy-through, needed only because its blocks lived in VMEM, is gone).
+// The host binds a state's pointers and dimensions once (RecordTables) and
+// passes them by address: a launch takes four arguments.
+//
+// The miss kernel (one warp): the page comes by value, so the recording
+// table's bucket row, the prefetch table's key row, ts and mine_fill load
+// in one round; the hit way's P values and the event's mining row in the
+// next. It writes [need, cand_0 .. cand_{P-1}] to ``out`` (pinned host
+// memory mapped into the card's address space, or device memory):
+// need = mine_fill after the event >= mine_rows. The event never writes
+// the prefetch table, so the probe equals the lookup after the record
+// whenever no mining runs; when need is 1 the host mines and probes again.
 
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "mithril_common.cuh"
+
+namespace mithril {
+
+// The serving tier's miss: a one-lane state's record tables, its prefetch
+// table and the result buffer (kernels/mithril_record.py::MissArgs mirrors
+// this layout).
+struct MissArgs {
+  RecordTables rec;      // lanes == 1
+  const int* pf_key;     // (PB, PW) of lane 0
+  const int* pf_vals;    // (PB, PW, P) of lane 0
+  int* out;              // (1 + P,): need, then the P candidates
+  int pf_nb, pf_ways, plist, mine_rows;
+};
+static_assert(sizeof(MissArgs) == 152, "MissArgs mirrors this layout");
+
+}  // namespace mithril
 
 namespace {
 
-constexpr int kEmpty = -1;
+using mithril::MissArgs;
+using mithril::RecordTables;
 constexpr int kWarpsPerBlock = 4;
 
-__device__ __forceinline__ uint32_t mix32(uint32_t k) {
-  k ^= k >> 16;
-  k *= 0x7FEB352Du;
-  k ^= k >> 15;
-  k *= 0x846CA68Bu;
-  k ^= k >> 16;
-  return k;
+__global__ void record_kernel(RecordTables t, const int* __restrict__ block,
+                              const void* __restrict__ enabled,
+                              int enabled_is_bool) {
+  const int lane = threadIdx.x & 31;
+  const int l = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (l >= t.lanes) return;                     // whole warp leaves together
+  // round 1: the lane's flag, block, ts and mine_fill
+  const int en = enabled_is_bool
+                     ? static_cast<const unsigned char*>(enabled)[l]
+                     : static_cast<const int*>(enabled)[l];
+  const int blk = block[l];
+  const int ts = t.ts[l];
+  const int fill = t.mine_fill[l];
+  if (!en) return;                              // bit-exact no-op
+  // round 2: the bucket row; round 3 inside record_commit
+  const size_t bucket = mithril::bucket_base(t, l, blk);
+  const mithril::WayLoad w = mithril::load_way(t, bucket, lane);
+  mithril::record_commit(t, l, blk, ts, fill, bucket, w, lane);
 }
 
-__global__ void record_kernel(const int* __restrict__ block,
-                              const int* __restrict__ enabled,
-                              int* rec_key, int* rec_ts, int* rec_cnt,
-                              int* rec_age, int* rec_loc, int* rec_row,
-                              int* mine_block, int* mine_ts, int* mine_cnt,
-                              int* mine_fill, int* ts_arr, int lanes,
-                              int nb, int ways, int r_sup, int nm,
-                              int s_sup) {
-  const int t = threadIdx.x & 31;
-  const int l = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (l >= lanes) return;                       // whole warp leaves together
-  const bool en = enabled[l] != 0;
-  if (!en) return;                              // bit-exact no-op
-
-  const int blk = block[l];
-  const int ts = ts_arr[l];
-  const int fill = mine_fill[l];
-  const int b = static_cast<int>(mix32(static_cast<uint32_t>(blk)) &
-                                 static_cast<uint32_t>(nb - 1));
-  const size_t bucket = (static_cast<size_t>(l) * nb + b) * ways;
-
-  // --- hashindex.locate across the warp: thread t holds way t ---
-  const bool mine_way = t < ways;
-  const int key_t = mine_way ? rec_key[bucket + t] : 0;
-  const int age_t = mine_way ? rec_age[bucket + t] : INT32_MAX;
-  const unsigned hit = __ballot_sync(0xFFFFFFFFu, mine_way && key_t == blk);
-  const unsigned empty = __ballot_sync(0xFFFFFFFFu, mine_way && key_t == kEmpty);
-  const int min_age = __reduce_min_sync(0xFFFFFFFFu, age_t);
-  const unsigned oldest = __ballot_sync(0xFFFFFFFFu, mine_way && age_t == min_age);
-  if (t != 0) return;
-
-  const bool found = hit != 0;
-  const int w = found ? __ffs(hit) - 1
-                      : (empty ? __ffs(empty) - 1 : __ffs(oldest) - 1);
-  const size_t slot = bucket + w;
-  const int old_cnt = rec_cnt[slot];
-  const int old_loc = rec_loc[slot];
-  const int old_row = rec_row[slot];
-  const bool is_new = !found;
-  const bool is_rec = found && old_loc != 1;
-  const bool is_upd = found && old_loc == 1;
-
-  // --- recording-table stamp (one R-slot row) ---
-  int* ts_row = rec_ts + slot * r_sup;
-  if (is_new) {
-    ts_row[0] = ts;
-    for (int k = 1; k < r_sup; ++k) ts_row[k] = 0;
-  } else if (is_rec) {
-    for (int k = 0; k < r_sup; ++k)
-      if (k == old_cnt) ts_row[k] = ts;
-  }
-  const int cnt_val = is_new ? 1 : old_cnt + (is_rec ? 1 : 0);
-  bool migrate = is_rec && cnt_val >= r_sup;
-  if (r_sup == 1) migrate = migrate || is_new;  // born mining-ready
-
-  if (is_new) {
-    rec_key[slot] = blk;
-    rec_age[slot] = ts;
-  }
-  rec_cnt[slot] = cnt_val;
-  rec_loc[slot] = migrate ? 1 : (is_new ? 0 : old_loc);
-  if (migrate) rec_row[slot] = fill;
-
-  // --- mining-table insert (one S-slot row at m) ---
-  // the record/maybe_mine contract keeps fill < nm; a row out of range
-  // is dropped, as the reference's scatter drops it
-  const int m = migrate ? fill : (is_upd ? old_row : -1);
-  if (m >= 0 && m < nm) {
-    const size_t row = static_cast<size_t>(l) * nm + m;
-    int* mts = mine_ts + row * s_sup;
-    if (migrate) {
-      mine_block[row] = blk;
-      for (int k = 0; k < r_sup && k < s_sup; ++k) mts[k] = ts_row[k];
-      mine_cnt[row] = r_sup;
-    } else {
-      const int old_mcnt = mine_cnt[row];
-      if (old_mcnt < s_sup) {
-        for (int k = 0; k < s_sup; ++k)
-          if (k == old_mcnt) mts[k] = ts;
-        mine_cnt[row] = old_mcnt + 1;
-      } else {
-        mine_cnt[row] = s_sup + 1;              // frequent: excluded
-      }
-    }
-  }
-  if (migrate) mine_fill[l] = fill + 1;
-  ts_arr[l] = ts + 1;
+__global__ void miss_kernel(MissArgs a, int page) {
+  const int lane = threadIdx.x;
+  const RecordTables& t = a.rec;
+  // round 1: ts, mine_fill, the recording table's bucket row and the
+  // prefetch table's key row (its first 32 ways)
+  const int ts = t.ts[0];
+  const int fill = t.mine_fill[0];
+  const size_t bucket = mithril::bucket_base(t, 0, page);
+  const mithril::WayLoad w = mithril::load_way(t, bucket, lane);
+  const int pb = mithril::bucket_of(page, a.pf_nb);
+  const int way = mithril::warp_first_hit(
+      a.pf_key + static_cast<size_t>(pb) * a.pf_ways, a.pf_ways, page, lane);
+  // round 2: the hit way's values (issued here, stored after the event)
+  // beside the event's own second round
+  const int* vals = a.pf_vals + (static_cast<size_t>(pb) * a.pf_ways + way)
+                                    * a.plist;
+  const int v0 = (way >= 0 && lane < a.plist) ? vals[lane] : mithril::kEmpty;
+  const int fill_after =
+      mithril::record_commit(t, 0, page, ts, fill, bucket, w, lane);
+  if (lane < a.plist) a.out[1 + lane] = v0;
+  for (int p = lane + 32; p < a.plist; p += 32)
+    a.out[1 + p] = way >= 0 ? vals[p] : mithril::kEmpty;
+  if (lane == 0) a.out[0] = fill_after >= a.mine_rows ? 1 : 0;
 }
 
 }  // namespace
 
-extern "C" int mithril_record_step(const int* block, const int* enabled,
-                                   int* rec_key, int* rec_ts, int* rec_cnt,
-                                   int* rec_age, int* rec_loc, int* rec_row,
-                                   int* mine_block, int* mine_ts,
-                                   int* mine_cnt, int* mine_fill, int* ts,
-                                   int lanes, int nb, int ways, int r_sup,
-                                   int nm, int s_sup, void* stream) {
+extern "C" int mithril_record_step(const RecordTables* t, const int* block,
+                                   const void* enabled, int enabled_is_bool,
+                                   void* stream) {
   const int threads = 32 * kWarpsPerBlock;
-  const int grid = (lanes + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int grid = (t->lanes + kWarpsPerBlock - 1) / kWarpsPerBlock;
   record_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      block, enabled, rec_key, rec_ts, rec_cnt, rec_age, rec_loc, rec_row,
-      mine_block, mine_ts, mine_cnt, mine_fill, ts, lanes, nb, ways, r_sup,
-      nm, s_sup);
+      *t, block, enabled, enabled_is_bool);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the miss kernel, then records ``done`` (a CUDA event, or null)
+// on the same stream for the host to wait on; it does not wait itself.
+extern "C" int mithril_miss_step(const MissArgs* a, int page, void* stream,
+                                 void* done) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  miss_kernel<<<1, 32, 0, s>>>(*a, page);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess && done)
+    err = cudaEventRecord(static_cast<cudaEvent_t>(done), s);
+  return static_cast<int>(err);
+}
+
+// The address under which the card reaches ``p``: device memory as it is,
+// pinned host memory through its mapping (the same address under unified
+// addressing). Returns a CUDA error for memory the card cannot reach.
+extern "C" int mithril_device_address(void* p, void** dev) {
+  cudaPointerAttributes attr;
+  const cudaError_t err = cudaPointerGetAttributes(&attr, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *dev = attr.devicePointer;
+  return *dev ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

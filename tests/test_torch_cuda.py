@@ -17,7 +17,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.mithril_mine import pairwise_codes_kernel
 from repro_torch.kernels.mithril_mine_batched import (
     pairwise_codes_batched_kernel, pairwise_codes_batched_plain)
-from repro_torch.kernels.mithril_record import (record_step_kernel,
+from repro_torch.kernels.mithril_record import (miss_step_kernel,
+                                                miss_step_plain,
+                                                record_step_kernel,
                                                 record_step_plain)
 
 RECORD_LEAVES = ("rec_key", "rec_ts", "rec_cnt", "rec_age", "rec_loc",
@@ -48,20 +50,27 @@ def make_table(rng, n, s, spread=30, min_support=2):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ways", [1, 4, 32])
 @pytest.mark.parametrize("r_sup", [1, 2, 4])
-def test_record_kernel_matches_plain(cuda, r_sup):
+def test_record_kernel_matches_plain(cuda, r_sup, ways):
+    """Mixed enabled lanes, the flags as int32 and as bool in turn; 64
+    recording slots a lane, a hot set of keys that recur (migrations,
+    mining-row appends, frequent marks) and cold keys that fill every
+    bucket (victims by age)."""
     cfg = MithrilConfig(min_support=r_sup, max_support=max(4, r_sup),
-                        lookahead=8, rec_buckets=64, rec_ways=4,
+                        lookahead=8, rec_buckets=64 // ways, rec_ways=ways,
                         mine_rows=512)
-    rng = np.random.default_rng(r_sup)
+    rng = np.random.default_rng(r_sup * 100 + ways)
     gpu = init_state(cfg, cuda, lanes=5)
     cpu = init_state(cfg, "cpu", lanes=5)
     before = ops.launch_counts()["mithril_record"]
-    for _ in range(300):
-        blk = rng.integers(-2, 200, 5).astype(np.int32)
+    for i in range(300):
+        blk = np.where(rng.random(5) < 0.6, rng.integers(-2, 18, 5),
+                       rng.integers(0, 10**6, 5)).astype(np.int32)
         en = rng.integers(0, 2, 5).astype(np.int32)
+        en_gpu = torch.as_tensor(en, device=cuda)
         record_step_kernel(torch.as_tensor(blk, device=cuda),
-                           torch.as_tensor(en, device=cuda),
+                           en_gpu.bool() if i % 2 else en_gpu,
                            *(getattr(gpu, f) for f in RECORD_LEAVES))
         record_step_plain(torch.as_tensor(blk), torch.as_tensor(en),
                           *(getattr(cpu, f) for f in RECORD_LEAVES))
@@ -69,6 +78,107 @@ def test_record_kernel_matches_plain(cuda, r_sup):
     assert ops.launch_counts()["mithril_record"] == before + 300
     for name, a, b in zip(gpu._fields, to_numpy(gpu), to_numpy(cpu)):
         np.testing.assert_array_equal(a, b, err_msg=name)
+    assert int(cpu.mine_fill.min()) > 0
+    assert int((cpu.rec_key != -1).sum(-1).max()) == ways   # a full bucket
+
+
+def page_stream(rng, n_events, n_sets=10, universe=200):
+    """Working sets of 4 pages replayed in random order, stray pages and
+    a few EMPTY (-1) pages: the misses of a multi-tenant tier."""
+    sets = [rng.choice(universe, 4, replace=False) for _ in range(n_sets)]
+    out = []
+    while len(out) < n_events:
+        out.extend(int(p) for p in sets[rng.integers(n_sets)])
+        if rng.random() < 0.2:
+            out.append(int(rng.integers(universe)))
+        if rng.random() < 0.03:
+            out.append(-1)
+    return out[:n_events] + [-1]
+
+
+MISS_CONFIGS = {
+    # chip_smoke.py's serving_mcfg
+    "serving": dict(min_support=2, max_support=8, lookahead=40,
+                    rec_buckets=512, rec_ways=4, mine_rows=8, pf_buckets=512,
+                    pf_ways=4, prefetch_list=3),
+    "r1_small": dict(min_support=1, max_support=4, lookahead=40,
+                     rec_buckets=8, rec_ways=2, mine_rows=6, pf_buckets=4,
+                     pf_ways=2, prefetch_list=2),
+    # more ways and values than a warp's lanes: the probe's second chunk
+    "wide_prefetch": dict(min_support=2, max_support=8, lookahead=40,
+                          rec_buckets=16, rec_ways=32, mine_rows=8,
+                          pf_buckets=2, pf_ways=40, prefetch_list=33),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MISS_CONFIGS))
+def test_miss_launch_matches_plain(cuda, name):
+    """The tier's miss (``ops.MissStep``: one launch, the result read
+    from pinned memory after one wait) against ``miss_step_plain`` on a
+    copy of the state, exactly, event by event, with need = 0 and 1 (both
+    states mine when need is 1); and the launch into a device buffer."""
+    from repro_torch.core import maybe_mine
+    cfg = MithrilConfig(**MISS_CONFIGS[name])
+    a, b, c = (init_state(cfg, cuda) for _ in range(3))
+    step = ops.MissStep(cfg.mine_rows, cfg.prefetch_list, cuda)
+    dev_out = torch.empty(1 + cfg.prefetch_list, dtype=torch.int32,
+                          device=cuda)
+    before = ops.launch_counts()["mithril_miss_step"]
+    needs = hits = n = 0
+    for page in page_stream(np.random.default_rng(11), 400):
+        want = miss_step_plain(page, b, cfg.mine_rows).tolist()
+        need, cand = step(a, page)
+        miss_step_kernel(page, c, cfg.mine_rows, dev_out)
+        assert dev_out.tolist() == want, page
+        assert need == bool(want[0])
+        assert cand == [x for x in want[1:] if x >= 0], page
+        needs += need
+        hits += bool(cand)
+        n += 1
+        if need:
+            for st in (a, b, c):
+                maybe_mine(cfg, st)
+        for f in RECORD_LEAVES:
+            assert torch.equal(getattr(a, f), getattr(b, f)), (page, f)
+    for x, y, z in zip(to_numpy(a), to_numpy(b), to_numpy(c)):
+        np.testing.assert_array_equal(x, y)
+        np.testing.assert_array_equal(x, z)
+    assert ops.launch_counts()["mithril_miss_step"] == before + 2 * n
+    assert needs >= 3 and hits > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plist", [1, 3, 33])
+@pytest.mark.parametrize("ways", [1, 4, 32, 48])
+def test_hash_lookup_warp_probe_matches_plain(cuda, ways, plist):
+    """Keys in their own buckets, a quarter of the ways empty (hits in
+    the second chunk of ways at W = 48), values on empty ways, EMPTY
+    queries (which match the last way of their bucket, its only empty
+    one, and return its values), misses; Q not a multiple of the block's
+    warps."""
+    from repro_torch.kernels.hash_lookup import (hash_lookup_kernel,
+                                                 hash_lookup_plain)
+    from repro_torch.core.hashindex import bucket_index
+    nb = 8
+    rng = np.random.default_rng(ways * 100 + plist)
+    cand = rng.choice(10**6, 40 * nb * ways, replace=False).astype(np.int32)
+    home = bucket_index(torch.as_tensor(cand), nb).numpy()
+    full = np.stack([cand[home == b][:ways] for b in range(nb)])
+    pf_key = np.where(rng.random((nb, ways)) < 0.25, -1, full)
+    # the EMPTY query's bucket: its only empty way is the last one
+    e = int(bucket_index(torch.tensor([-1]), nb))
+    pf_key[e] = full[e]
+    pf_key[e, -1] = -1
+    pf_vals = rng.integers(0, 10**6, (nb, ways, plist)).astype(np.int32)
+    live = pf_key[pf_key >= 0]
+    qs = np.concatenate([rng.choice(live, 200), [-1] * 7,
+                         rng.integers(10**6, 2 * 10**6, 50)]).astype(np.int32)
+    qs = torch.as_tensor(rng.permutation(qs))
+    pf_key, pf_vals = torch.as_tensor(pf_key), torch.as_tensor(pf_vals)
+    want = hash_lookup_plain(qs, pf_key, pf_vals)
+    got = hash_lookup_kernel(qs.to(cuda), pf_key.to(cuda), pf_vals.to(cuda))
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
 @pytest.mark.cuda
@@ -99,6 +209,45 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         pairwise_codes_batched_kernel(ts.transpose(1, 2).contiguous()
                                       .transpose(1, 2), cnt, valid, 4, 4)
+
+    # a state bound by a launch, then a tensor swapped or reshaped
+    cfg = MithrilConfig(min_support=2, max_support=4, lookahead=8,
+                        rec_buckets=64, rec_ways=4, mine_rows=16,
+                        pf_buckets=16, pf_ways=4, prefetch_list=3)
+    st = init_state(cfg, cuda, lanes=2)
+    blk = torch.zeros(2, dtype=torch.int32, device=cuda)
+    leaves = [getattr(st, f) for f in RECORD_LEAVES]
+    record_step_kernel(blk, blk, *leaves)
+    with pytest.raises(TypeError):
+        record_step_kernel(blk, blk, leaves[0].float(), *leaves[1:])
+    with pytest.raises(ValueError):
+        record_step_kernel(blk, blk, leaves[0].reshape(2, 32, 8), *leaves[1:])
+    with pytest.raises(ValueError):
+        record_step_kernel(blk, blk, leaves[0], leaves[1].cpu(), *leaves[2:])
+    with pytest.raises(TypeError):
+        record_step_kernel(blk, blk.float(), *leaves)
+    record_step_kernel(blk, blk.bool(), *leaves)
+
+    # the miss launcher: one lane, an output on the card or pinned
+    one = init_state(cfg, cuda)
+    out = torch.empty(4, dtype=torch.int32, device=cuda)
+    miss_step_kernel(5, one, cfg.mine_rows, out)
+    with pytest.raises(ValueError):
+        miss_step_kernel(5, st, cfg.mine_rows, out)          # two lanes
+    with pytest.raises(ValueError):
+        miss_step_kernel(5, one, cfg.mine_rows, out[:3])
+    with pytest.raises(ValueError):                          # pageable
+        miss_step_kernel(5, one, cfg.mine_rows, out.cpu())
+    with pytest.raises(TypeError):
+        miss_step_kernel(5, one._replace(pf_vals=one.pf_vals.long()),
+                         cfg.mine_rows, out)
+    with pytest.raises(ValueError):
+        miss_step_kernel(5, one._replace(rec_ts=one.rec_ts.reshape(
+            1, 64, 8, 1)), cfg.mine_rows, out)
+    with pytest.raises(ValueError):
+        miss_step_kernel(1 << 31, one, cfg.mine_rows, out)
+    miss_step_kernel(5, one, cfg.mine_rows, out.cpu().pin_memory())
+    torch.cuda.synchronize()
 
 
 # the shapes of tests/test_kernels.py::TestPagedDecodeKernel, then
@@ -259,6 +408,11 @@ def test_tier_on_the_card_matches_the_cpu(cuda):
     assert gpu.stats == cpu.stats and gpu.stats.prefetch_used > 0
     np.testing.assert_array_equal(gpu.slot_page, cpu.slot_page)
     after = ops.launch_counts()
-    for name in ("mithril_record", "mithril_pairwise", "hash_lookup",
+    # a miss is one launch (record + probe); the lookup kernel runs only
+    # after a mining run
+    for name in ("mithril_miss_step", "mithril_pairwise", "hash_lookup",
                  "paged_decode"):
         assert after[name] > before[name], name
+    assert after["mithril_miss_step"] - before["mithril_miss_step"] == \
+        gpu.stats.demand_fetches
+    assert after["mithril_record"] == before["mithril_record"]
