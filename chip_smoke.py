@@ -8,11 +8,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device and build — the card's name and power limit, then the CUDA
    kernels built from ``src/repro_torch/kernels/csrc`` into
    ``build/kernels``, one ``nvcc`` per source, all at once, with what
-   ptxas reports for the decode kernels (registers, spills);
+   ptxas reports for the decode and mining kernels (registers, spills);
 2. kernels — each kernel against its plain PyTorch version on the card:
-   the record and mining kernels at the paper's shapes (L = 1, 16, 135
+   the record and codes kernels at the paper's shapes (L = 1, 16, 135
    lanes), at the parity sweeps' shapes (``SUITE_MITHRIL``, 16 lanes)
-   and odd cases, exactly (int32); the decode kernel at the shapes of
+   and odd cases, exactly (int32); the fused mining run
+   (``mithril_mine_step``) exactly, every state leaf, at the serving
+   tier's tables (MCFG, one lane), the parity sweeps' (16 lanes, mixed
+   need, and symmetric), the paper's (L = 1, 16, 135; and 135 lanes with
+   no lane to mine, the real-size sweep's launch; one lane with no
+   valid row) and a pairs cap that cuts rows, with the serving tier's
+   whole mining run (launch, lookup, read) on the host clock; the
+   decode kernel at the shapes of
    ``tests/test_kernels.py::TestPagedDecodeKernel`` and at llama3.2-3b's
    attention widths (5 rows and one row; lengths 0, 1, ragged and
    full), float32 within 2e-5 and bfloat16 within 2e-2; the lookup
@@ -21,10 +28,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the serving tables, need = 0 and 1. ``ms`` is the median CUDA-event
    time of one call as the main path makes it (wrapper included; for
    the miss launch the host clock around the tier's whole call, the wait
-   for the result included), ``host_ms`` (record, lookup) the host
-   clock of a call that is not waited for, ``device_ms`` the kernel's
-   own time in a ``torch.profiler`` trace (decode: split kernel plus
-   merge, with the split plan), ``bound_ms`` the least bytes (or
+   for the result included; for the mining run a call on a fresh copy of
+   the state each time), ``host_ms`` (record, codes, mining run, lookup)
+   the host clock of a call that is not waited for, ``device_ms`` the
+   kernel's own time in a ``torch.profiler`` trace (decode: split kernel
+   plus merge, with the split plan), ``bound_ms`` the least bytes (or
    operations) of the same call over the card's peak, ``library_ms``
    one PyTorch call computing the same function, where there is one;
    ``launch_floor_ms`` is the device time of one PyTorch elementwise op
@@ -34,7 +42,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    corpus (4000 requests) for the 9 labels of the benchmark grid at
    capacity 512, in three processes at once; each label's rounded hit
    ratios (and mean precision) must equal the ``corpus_figures_quick``
-   rows of ``results/bench/BENCH_baseline_quick.json``;
+   rows of ``results/bench/BENCH_baseline_quick.json``; a MITHRIL
+   label's mining runs are timed on the host clock and by CUDA events,
+   with one wait after the sweep;
 4. real size — the paper's deployment: the full 135-trace corpus
    (22.5k-50k requests per trace), the paper's MITHRIL tables and a
    65,536-block cache with 16 ways, ``mithril-lru`` in one sweep of 135
@@ -52,18 +62,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    equal a CPU run of the port in a child process (started with the
    script), and whose decode through the tier must match the plain
    decode over the host pages; each MITHRIL run must launch the miss
-   kernel once per demand fetch, and the line gives the host time a
-   miss takes outside mining.
+   kernel once per demand fetch and the mining run (and the lookup after
+   it) once per mining run, and the line gives the host time of a mining
+   run and of a miss outside mining.
 
 The main path is phases 3, 4 and 5: the launch counters are zeroed just
-before the parity sweeps and read after each of the later phases, and
-each of the five kernels, the serving tier's miss launch and the
-decode's merge must have launched on one of them; the ``kernels`` line
-gives the launches of each phase.
+before the parity sweeps and read after each of the later phases; the
+record, lookup and decode kernels, the serving tier's miss launch, the
+fused mining run and the decode's merge must have launched on one of
+them, and the two codes launches on none: the main path mines only
+through ``mithril_mine_step``, and the codes launches, the counterparts
+of the TPU kernels' own contract, are held and timed in phase 2; the
+``kernels`` line gives the launches of each phase.
 (At the paper's sizes the 50k request traces never fill the
 65,536-block cache, so the real-size sweep records every miss but never
-mines; the batched mining kernel runs in parity only, and is timed at
-its shapes.)
+mines; its barrier launches the mining run with no lane to mine.)
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -115,8 +128,17 @@ KERNEL_INFO = {
     "mithril_miss_step": (
         "src/repro_torch/kernels/csrc/mithril_record.cu",
         "src/repro/kernels/mithril_record.py:199"),
+    # the whole mining run (sort, codes, selection, compaction, fold,
+    # clear) in one launch
+    "mithril_mine_step": (
+        "src/repro_torch/kernels/csrc/mithril_mine.cu",
+        "src/repro/kernels/mithril_mine_batched.py:72"),
 }
-ALSO_REPLACES = {"mithril_miss_step": "src/repro/kernels/hash_lookup.py:62"}
+ALSO_REPLACES = {"mithril_miss_step": "src/repro/kernels/hash_lookup.py:62",
+                 "mithril_mine_step": "src/repro/kernels/mithril_mine.py:88"}
+# the codes launches keep the TPU kernels' contract for callers that pass
+# a pairwise function; the main path mines through mithril_mine_step
+OFF_PATH = ("mithril_pairwise", "mithril_pairwise_batched")
 
 
 def emit(obj) -> None:
@@ -172,6 +194,31 @@ def host_ms(fn, reps: int = 200, warm: int = 5) -> float:
     return statistics.median(marks) * 1e3
 
 
+def fresh_ms(call, restore, reps: int = 30, warm: int = 3):
+    """Median CUDA-event ms and host-clock ms of ``call`` on a state that
+    ``restore`` resets before every call, outside both clocks (the reset
+    is queued before the first event, so the interval holds the call)."""
+    import torch
+    for _ in range(warm):
+        restore()
+        call()
+    torch.cuda.synchronize()
+    marks, host = [], []
+    for _ in range(reps):
+        restore()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t = time.perf_counter()
+        call()
+        host.append(time.perf_counter() - t)
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    return (statistics.median(a.elapsed_time(b) for a, b in marks),
+            statistics.median(host) * 1e3)
+
+
 def profiled_kernels(fn, reps: int):
     """``(name, device seconds * 1e6, launches)`` of every CUDA kernel in
     a ``torch.profiler`` trace of ``reps`` calls of ``fn``."""
@@ -218,15 +265,16 @@ def launch_floor_ms() -> float:
     return device_ms(lambda: x.add_(1), "elementwise_kernel", reps=200)
 
 
-def ptxas_report(log: str) -> list:
-    """Registers, spills and static shared memory of each decode kernel
-    in an ``nvcc -Xptxas -v`` log, template arguments spelt out."""
+def ptxas_report(log: str, names: str = "paged_decode_(?:split|merge)"
+                 ) -> list:
+    """Registers, spills and static shared memory of each kernel whose
+    name matches ``names`` in an ``nvcc -Xptxas -v`` log, the decode
+    kernels' template arguments spelt out."""
     import re
     rows, row = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '[^']*?(paged_decode_"
-                      r"(?:split|merge))(?:I(13__nv_bfloat16|f)Li(\d+)E)?",
-                      line)
+        m = re.search(rf"Compiling entry function '[^']*?({names})"
+                      r"(?:I(13__nv_bfloat16|f)Li(\d+)E)?", line)
         if m:
             name = m.group(1)
             if m.group(2):
@@ -428,7 +476,175 @@ def check_pairwise(lanes, n, s, delta, window, dev, rng, r_sup=4,
     plain_ms = cuda_ms(lambda: pairwise_codes_batched_plain(
         ts, cnt, valid, delta, window), reps=10)
     return ms, plain_ms, pairwise_bytes(lanes, n, s, window), \
-        pairwise_ops(lanes, n, s, window), int((want > 0).sum()), dev_ms, err
+        pairwise_ops(lanes, n, s, window), int((want > 0).sum()), dev_ms, \
+        err, host_ms(kern, reps=100)
+
+
+# the state leaves a mining run reads or writes
+MINE_LEAVES = ("mine_block", "mine_ts", "mine_cnt", "mine_fill", "rec_key",
+               "rec_loc", "pf_key", "pf_vals", "pf_cnt", "pf_age", "ts",
+               "n_mines", "n_pairs", "n_dropped")
+
+
+def random_mine_state(cfg, lanes, dev, rng, valid_frac=0.85):
+    """A stacked state whose mining tables are full, in migration order:
+    rows of clustered timestamps (weak and strong pairs, first
+    timestamps that tie), some frequent and cleared rows; prefetch tables
+    half full, their sources among the mined blocks; the recording
+    table as record events leave it: a slot points into the mining table
+    (rec_loc = 1) only where it holds a mined block, in that block's
+    bucket."""
+    import numpy as np
+    import torch
+    from repro_torch.core import init_state
+    from repro_torch.core.hashindex import bucket_index
+    st = init_state(cfg, dev, lanes=lanes)
+    n, s, r = cfg.mine_rows, cfg.max_support, cfg.min_support
+    n_clusters = max(1, n // 6)
+    pattern = np.sort(rng.integers(0, 3 * cfg.lookahead // 4 + 2,
+                                   (lanes, n_clusters, s)), -1)
+    start = rng.integers(0, 12 * n, (lanes, n_clusters))
+    which = rng.integers(0, n_clusters, (lanes, n))
+    ar = np.arange(lanes)[:, None]
+    ts = (start[ar, which][..., None] + pattern[ar, which]
+          + rng.integers(0, 3, (lanes, n))[..., None])
+    cnt = rng.integers(r, s + 1, (lanes, n))
+    cnt = np.where(rng.random((lanes, n)) < valid_frac, cnt,
+                   rng.choice([0, s + 1], (lanes, n)))
+    ts = np.where(np.arange(s) < np.minimum(cnt, s)[..., None], ts, 0)
+    universe = 3 * cfg.pf_buckets
+    pf_shape, rec_shape = tuple(st.pf_key.shape), tuple(st.rec_key.shape)
+    blocks = rng.integers(0, universe, (lanes, n))
+    rec_key = rng.integers(0, universe, rec_shape)
+    rec_loc = np.zeros(rec_shape, np.int32)
+    bucket = bucket_index(torch.as_tensor(blocks.astype(np.int32)),
+                          cfg.rec_buckets).numpy()
+    way = rng.integers(0, cfg.rec_ways, (lanes, n))
+    rec_key[ar, bucket, way] = blocks
+    rec_loc[ar, bucket, way] = 1
+    fill = {"mine_block": blocks,
+            "mine_ts": ts, "mine_cnt": cnt, "mine_fill": np.full(lanes, n),
+            "rec_key": rec_key, "rec_loc": rec_loc,
+            "pf_key": np.where(rng.random(pf_shape) < 0.5,
+                               rng.integers(0, universe, pf_shape), -1),
+            "pf_vals": rng.integers(-1, universe, tuple(st.pf_vals.shape)),
+            "pf_cnt": rng.integers(0, 7, pf_shape),
+            "pf_age": rng.integers(0, 10**6, pf_shape),
+            "ts": rng.integers(10**6, 2 * 10**6, lanes),
+            "n_mines": rng.integers(0, 9, lanes),
+            "n_pairs": rng.integers(0, 999, lanes),
+            "n_dropped": rng.integers(0, 99, lanes)}
+    for name, value in fill.items():
+        getattr(st, name).copy_(torch.as_tensor(value.astype(np.int32)))
+    return st
+
+
+def mine_step_work(cfg, st, need):
+    """Least bytes and operations of one mining run on ``st`` (the
+    state is not changed). Bytes read: the need flags; for a lane that
+    mines, its counts and blocks, the live timestamps of its valid rows,
+    the scalars, per prefetch bucket the pairs touch its W keys and ages
+    and one way's P values and count, and the rec_loc of the recording
+    buckets of its mined blocks (a record event leaves rec_loc = 1 only
+    on a slot that holds a mined block, in the block's bucket) plus any
+    other slot with rec_loc = 1. Bytes written: the int32 elements the
+    run changes. Operations: a compare per sort step (N log2 N), 4 per
+    row pair the window examines (both valid), 3 per live aligned
+    timestamp of a pair with equal counts."""
+    import math
+    import torch
+    from repro_torch.core.hashindex import bucket_index
+    from repro_torch.core.mining import (associations_dense_batched,
+                                         sort_by_first_ts)
+    from repro_torch.kernels.mithril_mine_step import mine_step_plain
+    nd = need.bool()
+    lanes, n = st.mine_cnt.shape
+    w = cfg.window
+    blk, _, cnt, valid = sort_by_first_ts(st.mine_block, st.mine_ts,
+                                          st.mine_cnt, cfg.min_support,
+                                          cfg.max_support)
+    live = torch.where(valid, cnt, 0)
+    reads = int(nd.sum()) * (2 * n + 5) + int(live[nd].sum())
+    src, dst, ok, _ = associations_dense_batched(
+        st.mine_block, st.mine_ts, st.mine_cnt, cfg.min_support,
+        cfg.max_support, cfg.lookahead, w, cfg.pairs_cap)
+    keys = [src] + ([dst] if cfg.symmetric else [])
+    buckets = 0
+    for lane in torch.nonzero(nd).flatten().tolist():
+        got = torch.cat([k[lane][ok[lane]] for k in keys])
+        buckets += int(torch.unique(bucket_index(got, cfg.pf_buckets))
+                       .numel())
+        mined = st.mine_block[lane, :min(int(st.mine_fill[lane]), n)]
+        rec = torch.unique(bucket_index(mined, cfg.rec_buckets))
+        outside = torch.ones(cfg.rec_buckets, dtype=torch.bool,
+                             device=nd.device)
+        outside[rec] = False
+        reads += rec.numel() * cfg.rec_ways + int(
+            (st.rec_loc[lane][outside] == 1).sum())
+    reads += buckets * (2 * cfg.pf_ways + cfg.prefetch_list + 1)
+    after = type(st)(*(x.clone() for x in st))
+    mine_step_plain(cfg, after, nd)
+    changed = sum(int((getattr(after, f) != getattr(st, f)).sum())
+                  for f in MINE_LEAVES)
+    idx = (torch.arange(n, device=cnt.device)[:, None]
+           + torch.arange(1, w + 1, device=cnt.device)[None])
+    inside = idx < n
+    idx = idx.clamp(max=n - 1)
+    pair = valid[..., :, None] & valid[..., idx] & inside      # (L, N, W)
+    same = pair & (cnt[..., :, None] == cnt[..., idx])
+    ops = (int(nd.sum()) * n * max(1.0, math.log2(max(n, 2)))
+           + 4.0 * int(pair[nd].sum())
+           + 3.0 * int(torch.where(same, cnt[..., :, None], 0)[nd].sum()))
+    return lanes + 4.0 * (reads + changed), ops, int(ok[nd].sum())
+
+
+def check_mine_step(cfg, lanes, dev, rng, need_frac=1.0, timed=False,
+                    plain_reps=10, valid_frac=0.85):
+    """The fused mining run against ``mine_step_plain`` on copies of a
+    warm state, every leaf exactly, and the lanes whose flag is clear
+    untouched; when ``timed``, both on a fresh copy a call, the kernel's
+    device time and host clock, and the run's least bytes and
+    operations."""
+    import torch
+    from repro_torch.kernels.mithril_mine_step import (mine_step_kernel,
+                                                       mine_step_plain)
+    base = random_mine_state(cfg, lanes, dev, rng, valid_frac)
+    need = torch.as_tensor(rng.random(lanes) < need_frac, device=dev)
+    got = type(base)(*(x.clone() for x in base))
+    want = type(base)(*(x.clone() for x in base))
+    mine_step_kernel(cfg, got, need)
+    mine_step_plain(cfg, want, need)
+    torch.cuda.synchronize()
+    err = 0
+    for name in base._fields:
+        a, b, x = getattr(got, name), getattr(want, name), getattr(base, name)
+        err = max(err, max_err(a, b))
+        if not torch.equal(a, b) or not torch.equal(a[~need], x[~need]):
+            fail(f"mining run differs from plain in {name} (L={lanes}, "
+                 f"N={cfg.mine_rows}, W={cfg.window}, "
+                 f"pairs_cap={cfg.pairs_cap}, symmetric={cfg.symmetric}, "
+                 f"need {int(need.sum())} of {lanes})")
+    out = {"err": err, "lanes_mined": int(need.sum()),
+           "pairs_stored": int((want.n_pairs - base.n_pairs).sum()),
+           "pairs_dropped": int((want.n_dropped - base.n_dropped).sum())}
+    if not timed:
+        return out
+    work = type(base)(*(x.clone() for x in base))
+
+    def restore():
+        for f in MINE_LEAVES:
+            getattr(work, f).copy_(getattr(base, f))
+
+    def kern():
+        mine_step_kernel(cfg, work, need)
+    ms, hms = fresh_ms(kern, restore)
+    dev_ms = device_ms(lambda: (restore(), kern()), "mine_step_kernel")
+    plain_ms, _ = fresh_ms(lambda: mine_step_plain(cfg, work, need),
+                           restore, reps=plain_reps, warm=1)
+    by, ops, pairs = mine_step_work(cfg, base, need)
+    out.update(ms=ms, host_ms=hms, device_ms=dev_ms, plain_ms=plain_ms,
+               bytes=by, ops=ops, pairs_kept=pairs)
+    return out
 
 
 # the decode kernel's shapes: (B, Hq, Hkv, hd, ps, n_pages) of
@@ -747,6 +963,52 @@ def check_miss(cfg, dev, rng, events=300):
             "transport_ms_in_turns": turns}
 
 
+def serving_mining_run(cfg, dev, rng, reps: int = 200) -> dict:
+    """Host-clock ms of the serving tier's mining run on warm one-lane
+    states at its tables, the card idle at each start (the state reset
+    and synchronised first): the launch alone, the launch and a wait for
+    it, the query's fill with the lookup and the read of its result, and
+    the whole run as the tier makes it (``_mine_and_probe``: launch,
+    fill, lookup, read)."""
+    import torch
+    from repro_torch.kernels import ops
+    base = random_mine_state(cfg, 1, dev, rng)
+    work = type(base)(*(x.clone() for x in base))
+    everyone = ops.all_lanes(1, dev)
+    query = torch.zeros(1, dtype=torch.int32, device=dev)
+    page = int(base.mine_block[0, 0])
+
+    def restore():
+        for f in MINE_LEAVES:
+            getattr(work, f).copy_(getattr(base, f))
+        torch.cuda.synchronize()
+
+    def probe():
+        query.fill_(page)
+        return ops.prefetch_lookup(query, work.pf_key[0],
+                                   work.pf_vals[0])[0].tolist()
+
+    def waited():
+        ops.mithril_mine_step(cfg, work, everyone)
+        torch.cuda.synchronize()
+
+    def run():
+        ops.mithril_mine_step(cfg, work, everyone)
+        return probe()
+    out = {}
+    for name, fn in (("launch", lambda: ops.mithril_mine_step(
+            cfg, work, everyone)), ("launch_and_wait", waited),
+            ("fill_lookup_read", probe), ("run", run), ("run_again", run)):
+        marks = []
+        for _ in range(reps):
+            restore()
+            t = time.perf_counter()
+            fn()
+            marks.append(time.perf_counter() - t)
+        out[name] = statistics.median(marks) * 1e3
+    return out
+
+
 def phase_serving_kernels(dev, cases, timing, errs, floor):
     """The decode and lookup kernels against their plain versions; the
     timed shapes are those of the full-width serving phase (decode: B =
@@ -831,9 +1093,10 @@ def phase_serving_kernels(dev, cases, timing, errs, floor):
 def phase_kernels(dev):
     """Every kernel against its plain version. Returns, per kernel, the
     timing at the shape the main path launches it most (record: the
-    real-size sweep's; one-lane pairwise: the serving tier's; batched
-    pairwise: the parity sweeps', the only ones that mine batched) and
-    the largest absolute difference over all its cases."""
+    real-size sweep's; the mining run: the serving tier's, where it
+    mines most; the codes launches, off the main path: the serving
+    tier's and the parity sweeps' shapes) and the largest absolute
+    difference over all its cases."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import PAPER_MITHRIL as P, SUITE_MITHRIL as M
@@ -874,16 +1137,19 @@ def phase_kernels(dev):
     def pairwise(lanes, n, s, delta, w, tag, r_sup=4, vf=0.8, serial=False,
                  timed=None):
         name = "mithril_pairwise" if serial else "mithril_pairwise_batched"
-        ms, plain, by, ops, nz, dms, err = check_pairwise(
+        ms, plain, by, ops, nz, dms, err, hms = check_pairwise(
             lanes, n, s, delta, w, dev, rng, r_sup=r_sup, valid_frac=vf,
             serial=serial)
         errs[name] = max(errs[name], err)
         cases.append({"kernel": name, "L": 1 if serial else lanes,
                       "N": n, "S": s, "W": w, "case": tag, "ms": ms,
-                      "device_ms": dms, "plain_ms": plain,
-                      "bound_ms": bound(by, ops)[0], "nonzero_codes": nz})
+                      "host_ms": hms, "device_ms": dms, "plain_ms": plain,
+                      "bound_ms": bound(by, ops)[0],
+                      "floor_ratio": floor_ratio(dms, floor),
+                      "nonzero_codes": nz})
         if timed:
-            timing[timed] = (ms, plain, by, ops, dms)
+            timing[timed] = (ms, plain, by, ops, dms, None,
+                             {"host_ms": hms})
 
     n, s, delta, w = P.mine_rows, P.max_support, P.lookahead, P.window
     for lanes in (1, 16, 135):
@@ -913,6 +1179,60 @@ def phase_kernels(dev):
         for serial in (False, True):
             pairwise(lanes, n_, s_, d_, w_, tag, r_sup=2, vf=vf,
                      serial=serial)
+
+    def mine_step(cfg, lanes, tag, frac=1.0, timed=None, plain_reps=10,
+                  vf=0.85):
+        t = check_mine_step(cfg, lanes, dev, rng, need_frac=frac,
+                            timed=bool(timed), plain_reps=plain_reps,
+                            valid_frac=vf)
+        errs["mithril_mine_step"] = max(errs["mithril_mine_step"], t["err"])
+        row = {"kernel": "mithril_mine_step", "L": lanes,
+               "N": cfg.mine_rows, "S": cfg.max_support, "W": cfg.window,
+               "pairs_cap": cfg.pairs_cap, "symmetric": cfg.symmetric,
+               "case": tag, "max_abs_err": t["err"],
+               "lanes_mined": t["lanes_mined"],
+               "pairs_stored": t["pairs_stored"],
+               "pairs_dropped": t["pairs_dropped"]}
+        if timed:
+            bms = bound(t["bytes"], t["ops"])[0]
+            row.update(ms=t["ms"], host_ms=t["host_ms"],
+                       device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+                       bound_ms=bms, pairs_kept=t["pairs_kept"],
+                       floor_ratio=floor_ratio(t["device_ms"], floor))
+            timing[timed] = (t["ms"], t["plain_ms"], t["bytes"], t["ops"],
+                             t["device_ms"], None,
+                             {"host_ms": t["host_ms"], "L": lanes})
+        cases.append(row)
+
+    # the serving tier's mining run (one lane of MCFG), several tables
+    mine_step(mc, 1, "serving tables (MCFG), one lane",
+              timed="mithril_mine_step")
+    timing["mithril_mine_step"][6]["serving_run_host_ms"] = \
+        serving_mining_run(mc, dev, rng)
+    for _ in range(4):
+        mine_step(mc, 1, "serving tables (MCFG), one lane")
+    # the parity sweeps' barrier: SUITE_MITHRIL, 16 lanes, some mining
+    mine_step(M, 16, "suite tables (parity), mixed need", frac=0.6,
+              timed="mithril_mine_step@parity")
+    mine_step(dataclasses.replace(M, symmetric=True, pf_buckets=64), 16,
+              "suite tables, symmetric, 64 prefetch buckets", frac=0.6)
+    mine_step(dataclasses.replace(M, min_support=1, max_pairs=6,
+                                  mine_rows=37, lookahead=60), 8,
+              "R = 1, N = 37, window >= N - 1, 6 pairs kept", frac=0.8)
+    # the paper's tables: over 48 KiB of shared memory a block
+    mine_step(P, 1, "paper tables", timed="mithril_mine_step@paper1",
+              plain_reps=3)
+    # the sort, the walk and the clears alone: no row to pair
+    mine_step(P, 1, "paper tables, no valid row", vf=0.0,
+              timed="mithril_mine_step@empty", plain_reps=3)
+    mine_step(P, 16, "paper tables")
+    mine_step(dataclasses.replace(P, symmetric=True), 1,
+              "paper tables, symmetric")
+    mine_step(P, 135, "paper tables, every lane mines",
+              timed="mithril_mine_step@paper", plain_reps=3)
+    # the real-size sweep's barrier: 135 lanes, none to mine
+    mine_step(P, 135, "paper tables, no lane mines", frac=0.0,
+              timed="mithril_mine_step@no_need", plain_reps=3)
     phase_serving_kernels(dev, cases, timing, errs, floor)
     # the serving tier's miss at MCFG's tables
     t = check_miss(serving_mcfg(), dev, rng)
@@ -930,7 +1250,8 @@ def phase_kernels(dev):
                                    t["ops"], t["device_ms"], None, extra)
     emit({"phase": "kernels", "seconds": round(time.time() - t0, 3),
           "exact": ["mithril_record", "mithril_pairwise_batched",
-                    "mithril_pairwise", "hash_lookup", "mithril_miss_step"],
+                    "mithril_pairwise", "hash_lookup", "mithril_miss_step",
+                    "mithril_mine_step"],
           "tolerance": {"paged_decode": DECODE_TOL,
                         "paged_decode_bfloat16_rounding":
                             DECODE_BF16_ROUNDING},
@@ -988,7 +1309,9 @@ PARITY_GROUPS = (("mithril-amp-lru", "lru", "fifo"),
 def parity_labels(dev, labels, n_requests: int = PARITY_LEN) -> dict:
     """Sweep the quick corpus through ``labels`` in this process and hold
     each label's rounded hit ratios and mean precision against the
-    baseline row. Returns the results, launch counts and fold time."""
+    baseline row; a MITHRIL label's mining runs are timed
+    (``MineTimer``). Returns the results, launch counts and mining
+    time."""
     import numpy as np
     from repro_torch.cache import sweep_scheduled
     from repro_torch.kernels import ops
@@ -998,38 +1321,50 @@ def parity_labels(dev, labels, n_requests: int = PARITY_LEN) -> dict:
     names, blocks, lengths = corpus_suite("quick", n_requests)
     crc = zlib.crc32(np.ascontiguousarray(blocks).tobytes())
     grid = parity_grid(PARITY_CAPACITY)
-    timer = FoldTimer()
     ops.reset_launch_counts()
     t0 = time.time()
-    out = {}
-    try:
-        for label in labels:
-            cfg = grid[label]
-            t1 = time.time()
+    out, totals, call_ms = {}, dict.fromkeys(MineTimer.KEYS, 0), []
+    for label in labels:
+        cfg = grid[label]
+        row = rows[label]
+        timer = MineTimer() if cfg.use_mithril else None
+        t1 = time.time()
+        try:
             res = sweep_scheduled(cfg, blocks, lengths, device=dev)
-            hr = [round(float(h), 6) for h in res.hit_ratios()]
-            src = pf_src_of(cfg)
-            prec = res.precisions(src) if src else np.full(len(hr), np.nan)
-            prec_mean = (None if np.isnan(prec).all()
-                         else round(float(np.nanmean(prec)), 6))
-            row = rows[label]
-            ok = (hr == row["hit_ratios"]
-                  and prec_mean == row["precision_mean"]
-                  and round(float(np.mean(res.hit_ratios())), 6)
-                  == row["hit_ratio_mean"])
-            out[label] = {"hit_ratio_mean": round(float(np.mean(hr)), 6),
-                          "precision_mean": prec_mean, "equal": ok,
-                          "seconds": round(time.time() - t1, 3)}
-            if not ok:
-                out[label].update(got=hr, want=row["hit_ratios"],
-                                  want_precision=row["precision_mean"])
-    finally:
-        timer.close()
-    return {"labels": out, "launches": ops.launch_counts(),
-            "seconds": time.time() - t0, "fold_seconds": timer.seconds,
-            "n_mines": timer.mines, "traces": len(names),
-            "requests": int(lengths.sum()), "corpus_crc32": crc,
-            "numpy": np.__version__}
+        finally:
+            if timer is not None:
+                timer.close()
+        seconds = time.time() - t1
+        hr = [round(float(h), 6) for h in res.hit_ratios()]
+        src = pf_src_of(cfg)
+        prec = res.precisions(src) if src else np.full(len(hr), np.nan)
+        prec_mean = (None if np.isnan(prec).all()
+                     else round(float(np.nanmean(prec)), 6))
+        ok = (hr == row["hit_ratios"] and prec_mean == row["precision_mean"]
+              and round(float(np.mean(res.hit_ratios())), 6)
+              == row["hit_ratio_mean"])
+        out[label] = {"hit_ratio_mean": round(float(np.mean(hr)), 6),
+                      "precision_mean": prec_mean, "equal": ok,
+                      "seconds": round(seconds, 3)}
+        totals["sweep_seconds"] += seconds
+        if timer is not None:
+            out[label].update(mining_seconds=timer.seconds,
+                              mining_device_seconds=timer.device_seconds,
+                              mining_calls=timer.calls,
+                              lanes_mined=timer.mines)
+            totals["mining_seconds"] += timer.seconds
+            totals["mining_device_seconds"] += timer.device_seconds
+            totals["mining_calls"] += timer.calls
+            totals["lanes_mined"] += timer.mines
+            call_ms += [m * 1e3 for m in timer.marks]
+        if not ok:
+            out[label].update(got=hr, want=row["hit_ratios"],
+                              want_precision=row["precision_mean"])
+    return dict({"labels": out, "launches": ops.launch_counts(),
+                 "seconds": time.time() - t0, "traces": len(names),
+                 "requests": int(lengths.sum()), "corpus_crc32": crc,
+                 "numpy": np.__version__, "mining_call_device_ms": call_ms},
+                **totals)
 
 
 def phase_parity() -> dict:
@@ -1058,16 +1393,22 @@ def phase_parity() -> dict:
         for k, v in r["launches"].items():
             counts[k] = counts.get(k, 0) + v
     seconds = time.time() - t0
-    sweep_s = sum(r["seconds"] for r in results)
-    fold_s = sum(r["fold_seconds"] for r in results)
+    total = {k: sum(r[k] for r in results) for k in MineTimer.KEYS}
+    calls = [r["mining_call_device_ms"] for r in results]
+    every = sorted(m for c in calls for m in c)
+    total["mining_call_device_ms"] = {
+        "median": statistics.median(every) if every else None,
+        "max": every[-1] if every else None,
+        "first_in_each_process": [c[0] if c else None for c in calls]}
     first = results[0]
-    emit({"phase": "parity", "traces": first["traces"],
-          "requests": first["requests"],
-          "corpus_crc32": first["corpus_crc32"], "numpy": first["numpy"],
-          "processes": len(results), "labels": labels, "launches": counts,
-          "seconds": seconds, "sweep_seconds": sweep_s,
-          "fold_seconds": fold_s, "fold_share": fold_s / sweep_s,
-          "n_mines": sum(r["n_mines"] for r in results)})
+    emit(dict({"phase": "parity", "traces": first["traces"],
+               "requests": first["requests"],
+               "corpus_crc32": first["corpus_crc32"],
+               "numpy": first["numpy"], "processes": len(results),
+               "labels": labels, "launches": counts, "seconds": seconds,
+               "sweep_seconds": sum(r["seconds"] for r in results),
+               "mining_share": total["mining_seconds"]
+               / total["sweep_seconds"]}, **total))
     crcs = {r["corpus_crc32"] for r in results}
     if crcs != {QUICK_CORPUS_CRC32}:
         fail(f"parity: the generated quick corpus (crc32 {crcs}) is not "
@@ -1076,9 +1417,10 @@ def phase_parity() -> dict:
     if bad or len(labels) != 9:
         fail(f"parity: {bad or 'labels missing'} differ from "
              f"BENCH_baseline_quick.json")
-    if counts["mithril_record"] == 0 or not (
-            counts["mithril_pairwise"] or counts["mithril_pairwise_batched"]):
-        fail(f"parity: kernels not launched on the main path: {counts}")
+    if counts["mithril_record"] == 0 or counts["mithril_mine_step"] == 0 \
+            or any(counts[k] for k in OFF_PATH):
+        fail(f"parity: the sweeps did not record and mine through the "
+             f"record kernel and the mining run alone: {counts}")
     return counts
 
 
@@ -1110,29 +1452,50 @@ def cross_check_child(n_requests: int) -> None:
                       "seconds": res.seconds}), flush=True)
 
 
-class FoldTimer:
-    """Host time inside ``mithril._fold_pairs`` (synchronised at exit)
-    and the number of lane mining runs it folded."""
+class MineTimer:
+    """The card's whole mining run inside ``mithril.mine_batched``,
+    timed without waiting for the card: the host clock of each call (its
+    launch path: what the run costs the host-bound sweep) and a pair of
+    CUDA events around it on the current stream (the run on the device).
+    ``close`` waits once and reads the events and the lanes each call
+    mined. (A synchronise around each call times its own waits: at the
+    16,000 parity barriers, three processes sharing the card, 0.64 ms a
+    call against 0.0016-0.016 ms of kernel.)"""
+
+    KEYS = ("mining_seconds", "mining_device_seconds", "mining_calls",
+            "lanes_mined", "sweep_seconds")
 
     def __init__(self):
         import torch
         from repro_torch.core import mithril
-        self.mod, self.orig = mithril, mithril._fold_pairs
-        self.seconds, self.calls, self.mines = 0.0, 0, 0
+        self.torch, self.mod, self.orig = torch, mithril, mithril.mine_batched
+        self.seconds, self.calls, self.events, self.needs = 0.0, 0, [], []
 
-        def timed(cfg, state, src, dst, valid, dropped, need=None):
+        def timed(cfg, states, need, *args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             t = time.perf_counter()
-            out = self.orig(cfg, state, src, dst, valid, dropped, need)
-            torch.cuda.synchronize()
+            out = self.orig(cfg, states, need, *args, **kw)
             self.seconds += time.perf_counter() - t
+            end.record()
             self.calls += 1
-            self.mines += (state.ts.shape[0] if need is None
-                           else int(need.sum()))
+            self.events.append((start, end))
+            self.needs.append(need)
             return out
-        mithril._fold_pairs = timed
+        mithril.mine_batched = timed
 
     def close(self):
-        self.mod._fold_pairs = self.orig
+        """Restore ``mine_batched``, wait for the card once, and read
+        ``device_seconds``, ``mines`` (the lanes mined) and ``marks``
+        (the device seconds of each call that mined a lane)."""
+        self.mod.mine_batched = self.orig
+        self.torch.cuda.synchronize()
+        lanes = ([int(n) for n in self.torch.stack(self.needs).sum(1)]
+                 if self.needs else [])
+        sec = [a.elapsed_time(b) / 1e3 for a, b in self.events]
+        self.device_seconds, self.mines = sum(sec), sum(lanes)
+        self.marks = [t for t, n in zip(sec, lanes) if n]
 
 
 def phase_profile(dev, steps: int = 300):
@@ -1180,8 +1543,7 @@ def start_cross_check(n_requests: int = REAL_LEN) -> subprocess.Popen:
         env=dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES=""))
 
 
-def phase_real(dev, child: subprocess.Popen, timer,
-               n_requests: int = REAL_LEN):
+def phase_real(dev, child: subprocess.Popen, n_requests: int = REAL_LEN):
     import numpy as np
     import torch
     from repro_torch.cache import sweep_scheduled
@@ -1194,7 +1556,6 @@ def phase_real(dev, child: subprocess.Popen, timer,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = ops.launch_counts()
-    fold = (timer.seconds, timer.calls, timer.mines)
     res = sweep_scheduled(cfg, blocks, lengths, device=dev)
     torch.cuda.synchronize()
     counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
@@ -1203,7 +1564,6 @@ def phase_real(dev, child: subprocess.Popen, timer,
     if not np.isfinite(hr).all() or hr.shape != (len(names),):
         fail("real size: hit ratios are not finite")
     stats = res.stats
-    fold_s = timer.seconds - fold[0]
     info = {"phase": "real_size", "traces": len(names),
             "requests": int(lengths.sum()),
             "requests_min": int(lengths.min()),
@@ -1211,9 +1571,6 @@ def phase_real(dev, child: subprocess.Popen, timer,
             "lane_width": len(names), "steps": int(lengths.max()),
             "seconds": res.seconds,
             "requests_per_s": float(lengths.sum() / res.seconds),
-            "fold_seconds": fold_s, "fold_calls": timer.calls - fold[1],
-            "fold_share": fold_s / res.seconds,
-            "n_mines": timer.mines - fold[2],
             "hit_ratio_mean": float(hr.mean()),
             "prefetch_issued": int(stats.pf_issued[:, 1].sum()),
             "prefetch_used": int(stats.pf_used[:, 1].sum()),
@@ -1418,15 +1775,18 @@ def serving_spans() -> HostSpans:
     """The serving step's host work: the demand pass and, inside it, the
     installs (eviction + the two page copies) and MITHRIL on each miss
     (the miss launch and its wait; after a full mining table the mining
-    run and a lookup), with the mining runs inside that; the decode
+    run), with the mining runs inside that (the run's launch, the lookup
+    launch, and the rest: the query's fill and the wait); the decode
     launch."""
     from repro_torch.cache.tiered import TieredKVCache
-    from repro_torch.core import mithril
+    from repro_torch.kernels import ops
     return HostSpans({
         "demand_batch": (TieredKVCache, "demand_batch"),
         "install": (TieredKVCache, "_install"),
         "mithril_on_miss": (TieredKVCache, "_mithril_on_miss"),
-        "mine": (mithril, "mine"),
+        "mine": (TieredKVCache, "_mine_and_probe"),
+        "mine_launch": (ops, "mithril_mine_step"),
+        "mine_lookup": (ops, "prefetch_lookup"),
         "decode_batch": (TieredKVCache, "decode_batch")})
 
 
@@ -1523,14 +1883,31 @@ def phase_serving(dev, child: subprocess.Popen) -> dict:
         if misses != (m["tier"]["demand_fetches"] if mithril else 0):
             miss_bad.append(f"full width {config}")
         if mithril:
-            full[config]["n_mines"] = int(eng.tier._mstate.n_mines[0])
+            n_mines = int(eng.tier._mstate.n_mines[0])
+            full[config]["n_mines"] = n_mines
             # a miss's host time outside the mining runs (record, probe,
-            # the wait for the result and the lookup after a run)
+            # the wait for the result), and a mining run's (its launch,
+            # the lookup and the wait)
             on_miss, mine = host_spans["mithril_on_miss"], host_spans["mine"]
             full[config]["host_ms_a_miss_outside_mining"] = (
                 (on_miss["seconds"] - mine["seconds"])
                 / max(1, on_miss["calls"]) * 1e3)
+            runs = max(1, mine["calls"])
+            full[config]["host_ms_a_mining_run"] = (
+                mine["seconds"] / runs * 1e3)
+            launch = host_spans["mine_launch"]["seconds"]
+            lookup = host_spans["mine_lookup"]["seconds"]
+            full[config]["host_ms_a_mining_run_parts"] = {
+                "mine_launch": launch / runs * 1e3,
+                "lookup": lookup / runs * 1e3,
+                "fill_and_wait": (mine["seconds"] - launch - lookup)
+                / runs * 1e3}
             full[config]["miss_launches"] = misses
+            launched = full[config]["launches"]
+            if not (launched["mithril_mine_step"] == launched["hash_lookup"]
+                    == mine["calls"] == n_mines > 0):
+                miss_bad.append(f"full width {config}: {n_mines} mining "
+                                f"runs, launches {launched}")
             warm = eng
     counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
     # the decode's merge kernel, launched by its wrapper when a plan has
@@ -1563,8 +1940,8 @@ def phase_serving(dev, child: subprocess.Popen) -> dict:
     if bad:
         fail(f"serving: full-width {bad} differ from the CPU run")
     if miss_bad:
-        fail(f"serving: miss launches differ from the demand fetches in "
-             f"{miss_bad}")
+        fail(f"serving: miss or mining launches differ from the demand "
+             f"fetches or the mining runs in {miss_bad}")
     return counts
 
 
@@ -1620,7 +1997,10 @@ def run(children: dict, t_start: float) -> int:
           "libraries": [str(p.relative_to(ROOT)) for p in libs.values()],
           "seconds": round(time.time() - t0, 3),
           "ptxas_paged_decode": ptxas_report(
-              backend.BUILD_LOGS["paged_decode"])})
+              backend.BUILD_LOGS["paged_decode"]),
+          "ptxas_mithril_mine": ptxas_report(
+              backend.BUILD_LOGS["mithril_mine"],
+              "mine_step_kernel|pairwise_codes_kernel")})
 
     timing, errs, floor = phase_kernels(dev)
     # the main path: the parity sweeps (in child processes, whose
@@ -1629,27 +2009,33 @@ def run(children: dict, t_start: float) -> int:
     from repro_torch.kernels import ops
     ops.reset_launch_counts()
     by_path = {"parity": phase_parity()}
-    timer = FoldTimer()
-    by_path["real_size"] = phase_real(dev, children["real_size"], timer)
-    timer.close()
+    by_path["real_size"] = phase_real(dev, children["real_size"])
     by_path["serving"] = phase_serving(dev, children["serving"])
     counts = {k: sum(c[k] for c in by_path.values()) for k in KERNEL_INFO}
     merges = by_path["serving"]["paged_decode_merge"]    # only serving
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k, v in counts.items() if v == 0 and k not in OFF_PATH]
     if merges == 0:
         missing.append("paged_decode (merge)")
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
+    composed = {k: counts[k] for k in OFF_PATH if counts[k]}
+    if composed:
+        fail(f"the main path mined through the codes launches: {composed}")
     phase_profile(dev)
 
     # each kernel timed at the shape the main path launches it most:
     # record at the real-size sweep's (paper tables, 135 lanes; its
-    # parity and serving shapes are under "at_parity" / "at_serving"),
-    # one-lane pairwise at the serving tier's (MCFG, N = 8, W = 7; its
-    # parity shape under "at_parity"), batched pairwise at the parity
-    # sweeps' (the real-size sweep never mines), decode and lookup at
-    # the full-width serving run's (decode's quick-scale shape is under
-    # "at_quick")
+    # parity and serving shapes are under "at_parity" / "at_serving");
+    # the mining run at the serving tier's (MCFG, one lane), where it
+    # mines most (the parity sweeps' shape under "at_parity", the
+    # paper's under "at_paper" (135 lanes) and "at_paper1" (one), and the
+    # real-size barrier's 135 lanes with none to mine under
+    # "at_no_need", and one paper lane with no valid row, the run's
+    # sort, walk and clears alone, under "at_empty"); the codes
+    # launches, off the main path, at the serving tier's (one lane) and
+    # the parity sweeps' (16 lanes) shapes;
+    # decode and lookup at the full-width serving run's (decode's
+    # quick-scale shape is under "at_quick")
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         ms, plain_ms, by, ops_, dev_ms, lib_ms = (timing[name] + (None,))[:6]
@@ -1667,7 +2053,8 @@ def run(children: dict, t_start: float) -> int:
             row["merge_launches"] = merges
         if len(timing[name]) > 6:
             row.update(timing[name][6])
-        for tag in ("parity", "quick", "b1", "serving"):
+        for tag in ("parity", "quick", "b1", "serving", "paper", "paper1",
+                    "empty", "no_need"):
             if f"{name}@{tag}" in timing:
                 t = timing[f"{name}@{tag}"]
                 row[f"at_{tag}"] = {"ms": t[0], "device_ms": t[4],

@@ -7,9 +7,9 @@ Counterpart of the batch half of ``repro/cache/sweep.py``:
   the segments of ``simulator.build_segments`` run on the stacked
   carry, recording segments go through
   ``mithril.record_event_batched`` with the fused record kernel, and
-  each mining barrier is one host check of which lanes filled their
-  mining table, followed by ``mithril.mine_batched`` (the pairwise
-  kernels) only when some did;
+  each mining barrier is ``mithril.mine_batched`` on the device mask of
+  the lanes that filled their mining table: on the card one launch of
+  the fused mining run and no host wait;
 * ``sweep`` is the plain loop over ``(chunk, B)`` request slabs — the
   reference's offline special case of its streaming engine;
 * ``plan_sweep`` is the reference's cost-model packer (one device, so
@@ -78,8 +78,8 @@ def build_batched_step(cfg: SimConfig, device: Device = None):
     (``block``/``valid`` are (B,)) and returns ``(carry, hit)``; the
     carry is updated in place. Recording segments launch the fused
     record kernel once per segment (its plain version for CPU tensors);
-    each mining barrier mines exactly the live lanes whose table filled,
-    through the pairwise kernels.
+    each mining barrier mines exactly the live lanes whose table filled:
+    on the card one launch of the fused mining run on the device mask.
     """
     dev = resolve_device(device)
     init_carry, segments = build_segments(cfg, dev)
@@ -90,10 +90,7 @@ def build_batched_step(cfg: SimConfig, device: Device = None):
 
     def batched_maybe_mine(mith, valid):
         need = (mith.mine_fill >= mine_rows) & valid
-        return mithril.mine_batched(
-            cfg.mithril, mith, need,
-            pairwise_fn=ops.mithril_pairwise_batched,
-            serial_pairwise_fn=ops.mithril_pairwise)
+        return mithril.mine_batched(cfg.mithril, mith, need)
 
     def step(carry, block, valid):
         aux = {"valid": valid}

@@ -139,6 +139,10 @@ class TieredKVCache:
                                       mithril_cfg.prefetch_list, dev)
             # the page of a miss that mined, for the lookup after the run
             self._query = torch.zeros(1, dtype=torch.int32, device=dev)
+            self._all = ops.all_lanes(1, dev)     # need of the one lane
+            # the lane's prefetch table, as the lookup takes it: the same
+            # tensors every call, so its launcher binds them once
+            self._pf = (self._mstate.pf_key[0], self._mstate.pf_vals[0])
 
     # -- tier management ----------------------------------------------------
 
@@ -188,13 +192,16 @@ class TieredKVCache:
         ``maybe_mine``, then ``lookup``)."""
         if self.mith_cfg is None:
             return []
-        st = self._mstate
-        need, cand = self._miss(st, page)
-        if not need:
-            return cand
-        mithril.maybe_mine(self.mith_cfg, st)
+        need, cand = self._miss(self._mstate, page)
+        return self._mine_and_probe(page) if need else cand
+
+    def _mine_and_probe(self, page: int) -> List[int]:
+        """The mining run of the tier's lane, then the probe of ``page``
+        in the mined table: on the card two launches (the whole run in
+        ``ops.mithril_mine_step``, the lookup kernel) and one wait."""
+        ops.mithril_mine_step(self.mith_cfg, self._mstate, self._all)
         self._query.fill_(page)     # a fill launch: no host-to-device copy
-        cand = ops.prefetch_lookup(self._query, st.pf_key[0], st.pf_vals[0])
+        cand = ops.prefetch_lookup(self._query, *self._pf)
         return [c for c in cand[0].tolist() if c >= 0]
 
     def access(self, pages: np.ndarray) -> np.ndarray:

@@ -123,6 +123,8 @@ def tier_from(ref: Any, device: Union[None, str, torch.device] = None
     tier.page_slot = {int(p): int(s) for p, s in ref.page_slot.items()}
     tier.clock = int(ref.clock)
     tier.stats = TieredStats(**dataclasses.asdict(ref.stats))
-    if cfg is not None:
-        tier._mstate = to_torch(ref._mstate, device, lanes=True)
+    if cfg is not None:      # into the tier's own tensors, which it binds
+        for mine, theirs in zip(tier._mstate, to_torch(ref._mstate, device,
+                                                       lanes=True)):
+            mine.copy_(theirs)
     return tier

@@ -156,10 +156,15 @@ def mine(cfg: MithrilConfig, state: MithrilState,
     """Run the mining procedure on every lane of ``state`` (usually one)
     and fold associations into the prefetch table.
 
+    On the card with no ``pairwise_fn`` the whole run is one launch
+    (``ops.mithril_mine_step``). Otherwise the run is composed:
     ``pairwise_fn`` has the one-lane (N, S) contract of
-    ``mining.pairwise_codes``; the default ``ops.mithril_pairwise`` is
-    the CUDA kernel on the card and its plain version on the CPU.
+    ``mining.pairwise_codes`` (default ``ops.mithril_pairwise``, the
+    plain version on the CPU).
     """
+    if pairwise_fn is None and state.ts.is_cuda:
+        return ops.mithril_mine_step(
+            cfg, state, ops.all_lanes(state.ts.shape[0], state.ts.device))
     fn = pairwise_fn or ops.mithril_pairwise
     outs = [associations_dense(
         state.mine_block[i], state.mine_ts[i], state.mine_cnt[i],
@@ -176,23 +181,30 @@ def mine_batched(cfg: MithrilConfig, states: MithrilState,
                  ) -> MithrilState:
     """Mine every lane flagged in ``need`` (B,) bool; others untouched.
 
-    Per-lane results equal :func:`mine` on exactly the needed lanes. A
-    host-side count of ``need`` picks one of two paths:
+    Per-lane results equal :func:`mine` on exactly the needed lanes. On
+    the card with neither pairwise function given, the run is one launch
+    of ``ops.mithril_mine_step`` on the device mask: no host wait, as the
+    reference's ``lax.cond`` reads nothing on the host. Otherwise (the
+    CPU, or a pairwise function passed) a host-side count of ``need``
+    picks one of two composed paths:
 
     * exactly ONE lane flagged — the common case when trace lanes fill
       their tables at their own pace — runs :func:`mine` on a view of
-      that lane (``serial_pairwise_fn``, default the one-lane kernel);
+      that lane (``serial_pairwise_fn``, default the one-lane codes);
     * several lanes flagged: one pass over ALL lanes, with
       ``pairwise_fn`` on the whole (B, N, S) stack (default the batched
-      kernel, one launch), then the pairs of the flagged lanes fold in.
+      codes), then the pairs of the flagged lanes fold in.
     """
+    if pairwise_fn is None and serial_pairwise_fn is None and \
+            states.ts.is_cuda:
+        return ops.mithril_mine_step(cfg, states, need)
     flagged = torch.nonzero(need).flatten().tolist()    # one host sync
     if not flagged:
         return states
     if len(flagged) == 1:
         i = flagged[0]
         mine(cfg, MithrilState(*(x[i:i + 1] for x in states)),
-             pairwise_fn=serial_pairwise_fn)
+             pairwise_fn=serial_pairwise_fn or ops.mithril_pairwise)
         return states
     fn = pairwise_fn or ops.mithril_pairwise_batched
     src, dst, valid, dropped = associations_dense_batched(
@@ -243,8 +255,9 @@ def record_event_batched(cfg: MithrilConfig, states: MithrilState,
 
 def maybe_mine(cfg: MithrilConfig, state: MithrilState,
                pairwise_fn: Optional[Callable] = None) -> MithrilState:
-    """Mine the lanes whose mining table is full (the Alg. 3 trigger);
-    one host check. ``pairwise_fn`` has the one-lane contract."""
+    """Mine the lanes whose mining table is full (the Alg. 3 trigger):
+    one launch and no host check on the card, one host check otherwise.
+    ``pairwise_fn`` has the one-lane contract."""
     need = state.mine_fill >= cfg.mine_rows
     return mine_batched(cfg, state, need, serial_pairwise_fn=pairwise_fn)
 

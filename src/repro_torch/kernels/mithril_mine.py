@@ -4,8 +4,10 @@ Counterpart of ``repro/kernels/mithril_mine.py`` (the Pallas
 ``pairwise_codes_kernel``): the same codes as
 ``mithril_mine_batched`` for one (N, S) mining table. On the card it is
 the ``L = 1`` launch of the same CUDA kernel (``csrc/mithril_mine.cu``),
-behind its own wrapper and launch counter; it serves the one-lane fast
-path of ``core.mithril.mine_batched`` and ``core.mithril.mine``.
+behind its own wrapper and launch counter. It is the default one-lane
+``pairwise_fn`` of the composed mining paths of ``core.mithril`` (the
+CPU, or a caller that passes a pairwise function); on the card a mining
+run with no pairwise function given is one ``mithril_mine_step`` launch.
 """
 
 from __future__ import annotations

@@ -11,8 +11,13 @@ every lane is compared with rows i+1..i+W:
 
 ``pairwise_codes_batched_plain`` is the plain PyTorch version (the CPU
 path and the card-side yardstick); ``pairwise_codes_batched_kernel``
-launches ``csrc/mithril_mine.cu`` on CUDA tensors. Rows past N are
-masked inside the kernel, so no padding is needed.
+launches ``csrc/mithril_mine.cu`` on CUDA tensors: one warp per row, the
+offsets across its lanes, a block of rows (plus the W rows after them)
+staged in shared memory. Rows past N are masked inside the kernel, so no
+padding is needed. The main path no longer launches it: a mining run on
+the card is one launch of ``mithril_mine_step``, which computes the same
+codes without writing them out; this launch stays the counterpart of the
+two TPU kernels and the ``pairwise_fn`` a caller may pass.
 """
 
 from __future__ import annotations
@@ -24,8 +29,7 @@ import torch
 from . import backend
 
 LIB = "mithril_mine"
-ROW_BLOCK = 64          # mining rows per CUDA block
-SMEM_LIMIT = 48 * 1024  # static-launch shared memory ceiling
+ROW_BLOCKS = (64, 32, 16, 8)    # mining rows per CUDA block, largest first
 
 
 def pairwise_codes_plain(ts: torch.Tensor, cnt: torch.Tensor,
@@ -70,14 +74,14 @@ def pairwise_codes_batched_plain(ts: torch.Tensor, cnt: torch.Tensor,
     return pairwise_codes_plain(ts, cnt, valid, delta, window)
 
 
-def _row_block(n_rows: int, window: int, s: int) -> int:
-    """Rows per CUDA block so the staged (rows + window) slab fits."""
-    rb = ROW_BLOCK
-    while rb > 1 and (rb + window) * (s + 2) * 4 > SMEM_LIMIT:
-        rb //= 2
-    if (rb + window) * (s + 2) * 4 > SMEM_LIMIT:
-        raise ValueError(f"window {window} x S {s} exceeds shared memory")
-    return rb
+def _row_block(lanes: int, n: int, device: torch.device) -> int:
+    """Rows per CUDA block: the largest block that still gives two
+    blocks per SM (the parity sweeps' 16 lanes of 64 rows take 8)."""
+    want = 2 * backend.sm_count(device)
+    for rb in ROW_BLOCKS:
+        if lanes * -(-n // rb) >= want:
+            return rb
+    return ROW_BLOCKS[-1]
 
 
 def launch(ts: torch.Tensor, cnt: torch.Tensor, valid: torch.Tensor,
@@ -93,7 +97,7 @@ def launch(ts: torch.Tensor, cnt: torch.Tensor, valid: torch.Tensor,
     out = torch.empty((lanes, n, window), dtype=torch.int32, device=dev)
     if lanes == 0 or n == 0 or window == 0:
         return out, False
-    rb = _row_block(n, window, s)
+    rb = _row_block(lanes, n, dev)
     fn = backend.c_function(LIB, "mithril_pairwise_codes",
                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                             + [ctypes.c_void_p])

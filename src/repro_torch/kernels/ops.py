@@ -17,6 +17,7 @@ from . import backend
 from .hash_lookup import hash_lookup_kernel
 from .mithril_mine import pairwise_codes_kernel
 from .mithril_mine_batched import pairwise_codes_batched_kernel
+from .mithril_mine_step import mine_step_kernel
 from .mithril_record import (miss_args, miss_step_kernel, miss_step_plain,
                              record_step_kernel)
 from .paged_decode import paged_decode_kernel
@@ -28,6 +29,7 @@ KERNELS = {
     "hash_lookup": hash_lookup_kernel,
     "paged_decode": paged_decode_kernel,
     "mithril_miss_step": miss_step_kernel,
+    "mithril_mine_step": mine_step_kernel,
 }
 
 
@@ -46,12 +48,22 @@ def reset_launch_counts() -> None:
 # of the mining barrier in one launch)
 mithril_pairwise = pairwise_codes_kernel
 mithril_pairwise_batched = pairwise_codes_batched_kernel
+# drop-in for ``core.mithril.mine_batched`` (cfg, states, need): the whole
+# mining run of the flagged lanes, one launch on the card
+mithril_mine_step = mine_step_kernel
 
 
 @functools.lru_cache(maxsize=None)
 def _ones(lanes: int, device: torch.device) -> torch.Tensor:
     """A cached all-enabled flag vector: read-only, never write into it."""
     return torch.ones(lanes, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def all_lanes(lanes: int, device: torch.device) -> torch.Tensor:
+    """A cached all-true (lanes,) bool mask (``need`` of a mining run of
+    every lane): read-only, never write into it."""
+    return torch.ones(lanes, dtype=torch.bool, device=device)
 
 
 def _per_lane(x, lanes: int, device: torch.device,

@@ -17,6 +17,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.mithril_mine import pairwise_codes_kernel
 from repro_torch.kernels.mithril_mine_batched import (
     pairwise_codes_batched_kernel, pairwise_codes_batched_plain)
+from repro_torch.kernels.mithril_mine_step import (mine_step_kernel,
+                                                   mine_step_plain)
 from repro_torch.kernels.mithril_record import (miss_step_kernel,
                                                 miss_step_plain,
                                                 record_step_kernel,
@@ -408,11 +410,268 @@ def test_tier_on_the_card_matches_the_cpu(cuda):
     assert gpu.stats == cpu.stats and gpu.stats.prefetch_used > 0
     np.testing.assert_array_equal(gpu.slot_page, cpu.slot_page)
     after = ops.launch_counts()
-    # a miss is one launch (record + probe); the lookup kernel runs only
-    # after a mining run
-    for name in ("mithril_miss_step", "mithril_pairwise", "hash_lookup",
+    # a miss is one launch (record + probe); a mining run is one launch
+    # and the lookup kernel runs only after one
+    for name in ("mithril_miss_step", "mithril_mine_step", "hash_lookup",
                  "paged_decode"):
         assert after[name] > before[name], name
     assert after["mithril_miss_step"] - before["mithril_miss_step"] == \
         gpu.stats.demand_fetches
-    assert after["mithril_record"] == before["mithril_record"]
+    assert after["mithril_mine_step"] - before["mithril_mine_step"] == \
+        after["hash_lookup"] - before["hash_lookup"]
+    for name in ("mithril_record", "mithril_pairwise",
+                 "mithril_pairwise_batched"):
+        assert after[name] == before[name], name
+
+
+# ---------------------------------------------------------------------------
+# the fused mining run and the redesigned codes launch
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's pairwise cases of the kernels phase, (L, N, S, delta, W)
+PHASE_PAIRWISE_CASES = [(1, 1024, 8, 100, 100), (16, 1024, 8, 100, 100),
+                        (135, 1024, 8, 100, 100), (16, 64, 8, 100, 63),
+                        (1, 8, 8, 40, 7), (3, 1000, 8, 100, 100),
+                        (4, 64, 8, 100, 63), (2, 40, 4, 50, 90),
+                        (2, 300, 12, 30, 300)]
+MINE_CONFIGS = {
+    # chip_smoke.py's serving_mcfg: one lane, N = 8, W = 7
+    "serving": (dict(min_support=2, max_support=8, lookahead=40,
+                     rec_buckets=512, rec_ways=4, mine_rows=8,
+                     pf_buckets=512, pf_ways=4, prefetch_list=3), 1),
+    # SUITE_MITHRIL, the parity sweeps' 16 lanes
+    "suite": (dict(min_support=2, max_support=8, lookahead=100,
+                   prefetch_list=3, rec_buckets=4096, rec_ways=4,
+                   mine_rows=64, pf_buckets=4096, pf_ways=4), 16),
+    "suite_symmetric": (dict(min_support=2, max_support=8, lookahead=100,
+                             prefetch_list=3, rec_buckets=4096, rec_ways=4,
+                             mine_rows=64, pf_buckets=64, pf_ways=4,
+                             symmetric=True), 16),
+    # PAPER_MITHRIL: N = 1024, W = 100, over 48 KiB of shared memory
+    "paper_1": (dict(min_support=4, max_support=8, lookahead=100,
+                     prefetch_list=2, rec_buckets=32768, rec_ways=4,
+                     mine_rows=1024, pf_buckets=16384, pf_ways=4), 1),
+    "paper_135": (dict(min_support=4, max_support=8, lookahead=100,
+                       prefetch_list=2, rec_buckets=32768, rec_ways=4,
+                       mine_rows=1024, pf_buckets=16384, pf_ways=4), 135),
+    "paper_symmetric": (dict(min_support=4, max_support=8, lookahead=100,
+                             prefetch_list=2, rec_buckets=32768, rec_ways=4,
+                             mine_rows=1024, pf_buckets=16384, pf_ways=4,
+                             symmetric=True), 1),
+    # few pairs kept (the cut falls mid-row), R = 1, odd N, W >= N - 1
+    "small_cap": (dict(min_support=1, max_support=4, lookahead=60,
+                       rec_buckets=16, rec_ways=3, mine_rows=37,
+                       pf_buckets=8, pf_ways=2, prefetch_list=2,
+                       max_pairs=6), 8),
+}
+
+
+def warm_mine_state(cfg, lanes, dev, rng, valid_frac=0.85, ts_base=0):
+    """A stacked state whose mining tables are full, in migration order:
+    rows of clustered timestamps (weak and strong pairs, shifts of 0-2),
+    some frequent and cleared rows; prefetch tables half full, sources
+    among the mined blocks; recording pointers into the mining table.
+
+    A nonzero ``ts_base`` is added to every timestamp in wrapped int32
+    (so a base near 2**31 puts some first timestamps past INT32_MAX, at
+    negative values), and two valid rows, N // 2 and N // 2 + 2, get
+    first timestamps of exactly INT32_MAX, which tie in the sort with
+    the invalid rows, and aligned gaps of 0 and 1 (a strong pair)."""
+    st = init_state(cfg, "cpu", lanes=lanes)
+    n, s, r = cfg.mine_rows, cfg.max_support, cfg.min_support
+    n_clusters = max(1, n // 6)
+    pattern = np.sort(rng.integers(0, 3 * cfg.lookahead // 4 + 2,
+                                   (lanes, n_clusters, s)), -1)
+    start = rng.integers(0, 12 * n, (lanes, n_clusters))
+    which = rng.integers(0, n_clusters, (lanes, n))
+    shift = rng.integers(0, 3, (lanes, n))
+    ar = np.arange(lanes)[:, None]
+    ts = (start[ar, which][..., None] + pattern[ar, which]
+          + shift[..., None])
+    cnt = rng.integers(r, s + 1, (lanes, n))
+    cnt = np.where(rng.random((lanes, n)) < valid_frac, cnt,
+                   rng.choice([0, s + 1], (lanes, n)))
+    if ts_base:
+        ts = ts.astype(np.int64) + ts_base
+        top = 2**31 - 1 + np.arange(s)
+        for row, step in ((n // 2, 0), (n // 2 + 2, 1)):
+            if row < n:
+                ts[:, row] = top + step * (np.arange(s) > 0)
+                cnt[:, row] = s
+        ts = (ts + 2**31) % 2**32 - 2**31
+    ts = np.where(np.arange(s) < np.minimum(cnt, s)[..., None], ts, 0)
+    universe = 3 * cfg.pf_buckets
+    blocks = rng.integers(0, universe, (lanes, n))
+    pf_shape = tuple(st.pf_key.shape)
+    pf_key = np.where(rng.random(pf_shape) < 0.5,
+                      rng.integers(0, universe, pf_shape), -1)
+    now = rng.integers(10**6, 2 * 10**6, lanes)
+    rec_shape = tuple(st.rec_key.shape)
+    fill = {"mine_block": blocks, "mine_ts": ts, "mine_cnt": cnt,
+            "mine_fill": np.full(lanes, n),
+            "rec_key": rng.integers(0, universe, rec_shape),
+            "rec_loc": (rng.random(rec_shape) < 0.05).astype(int),
+            "pf_key": pf_key,
+            "pf_vals": rng.integers(-1, universe, tuple(st.pf_vals.shape)),
+            "pf_cnt": rng.integers(0, 7, pf_shape),
+            "pf_age": rng.integers(0, 10**6, pf_shape), "ts": now,
+            "n_mines": rng.integers(0, 9, lanes),
+            "n_pairs": rng.integers(0, 999, lanes),
+            "n_dropped": rng.integers(0, 99, lanes)}
+    for name, value in fill.items():
+        getattr(st, name).copy_(torch.as_tensor(value.astype(np.int32)))
+    return type(st)(*(x.to(dev) for x in st))
+
+
+def clone_state(st):
+    return type(st)(*(x.clone() for x in st))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MINE_CONFIGS))
+def test_mine_step_matches_plain(cuda, name):
+    """The fused mining run against ``mine_step_plain`` on a copy of a
+    warm state, every leaf exactly; lanes with need = 0 untouched; a
+    second launch on another copy gives the same bits."""
+    kw, lanes = MINE_CONFIGS[name]
+    cfg = MithrilConfig(**kw)
+    rng = np.random.default_rng(len(name) * 7 + lanes)
+    base = warm_mine_state(cfg, lanes, cuda, rng)
+    need = torch.as_tensor(rng.random(lanes) < 0.6, device=cuda)
+    need[0] = True
+    if lanes > 2:
+        need[1] = False
+    got, again, want = (clone_state(base) for _ in range(3))
+    before = ops.launch_counts()
+    mine_step_kernel(cfg, got, need)
+    mine_step_kernel(cfg, again, need)
+    mine_step_plain(cfg, want, need)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["mithril_mine_step"] == before["mithril_mine_step"] + 2
+    for name_ in ("mithril_pairwise", "mithril_pairwise_batched"):
+        assert after[name_] == before[name_]
+    for field, a, b, c, x in zip(got._fields, got, again, want, base):
+        assert torch.equal(a, c), field
+        assert torch.equal(a, b), field
+        idle = ~need
+        assert torch.equal(a[idle], x[idle]), field
+    assert int((got.n_pairs - base.n_pairs)[need].sum()) > 0
+    if name == "small_cap":
+        assert int((got.n_dropped - base.n_dropped).sum()) > 0
+
+
+# timestamp bases for N mining rows, whose first timestamps start in
+# [0, 12 N) before the shift
+WRAP_BASES = {"past_int32_max": lambda n: 2**31 - 6 * n,
+              "either_side_of_0": lambda n: -6 * n,
+              "near_int32_min": lambda n: -2**31}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["suite", "suite_symmetric", "paper_1",
+                                  "small_cap"])
+@pytest.mark.parametrize("base", list(WRAP_BASES))
+def test_mine_step_matches_plain_at_wrapping_timestamps(cuda, base, name):
+    """Timestamps shifted by ``base`` in wrapped int32 (first timestamps
+    past INT32_MAX, negative ones, gaps across the wrap, valid rows at
+    INT32_MAX tied with the invalid rows): the fused mining run equals
+    ``mine_step_plain`` on every leaf, and the codes launch on the sorted
+    table equals the plain codes."""
+    from repro_torch.core.mining import sort_by_first_ts
+    kw, lanes = MINE_CONFIGS[name]
+    cfg = MithrilConfig(**kw)
+    rng = np.random.default_rng(len(name) + len(base))
+    base_st = warm_mine_state(cfg, lanes, cuda, rng,
+                              ts_base=WRAP_BASES[base](cfg.mine_rows))
+    assert bool((base_st.mine_ts[..., 0] == 2**31 - 1).any())
+    assert bool((base_st.mine_ts[..., 0] < 0).any())
+    need = torch.ones(lanes, dtype=torch.bool, device=cuda)
+    got, want = clone_state(base_st), clone_state(base_st)
+    mine_step_kernel(cfg, got, need)
+    mine_step_plain(cfg, want, need)
+    torch.cuda.synchronize()
+    for field, a, b in zip(got._fields, got, want):
+        assert torch.equal(a, b), field
+    _, ts, cnt, valid = sort_by_first_ts(
+        base_st.mine_block, base_st.mine_ts, base_st.mine_cnt,
+        cfg.min_support, cfg.max_support)
+    codes = pairwise_codes_batched_kernel(ts, cnt, valid, cfg.lookahead,
+                                          cfg.window)
+    assert torch.equal(codes, pairwise_codes_batched_plain(
+        ts, cnt, valid, cfg.lookahead, cfg.window))
+
+
+@pytest.mark.cuda
+def test_mine_step_runs_the_cards_mining_path(cuda):
+    """``mine``, ``maybe_mine`` and ``mine_batched`` on a card state take
+    the fused launch; with a pairwise function passed they stay composed
+    and give the same state."""
+    from repro_torch.core import mine, mine_batched
+    cfg = MithrilConfig(**MINE_CONFIGS["suite"][0])
+    base = warm_mine_state(cfg, 4, cuda, np.random.default_rng(5))
+    need = torch.tensor([True, False, True, True], device=cuda)
+    fused, composed = clone_state(base), clone_state(base)
+    before = ops.launch_counts()
+    mine_batched(cfg, fused, need)
+    mine_batched(cfg, composed, need,
+                 pairwise_fn=pairwise_codes_batched_kernel)
+    after = ops.launch_counts()
+    assert after["mithril_mine_step"] == before["mithril_mine_step"] + 1
+    assert after["mithril_pairwise_batched"] == \
+        before["mithril_pairwise_batched"] + 1
+    for field, a, b in zip(fused._fields, fused, composed):
+        assert torch.equal(a, b), field
+    one = type(base)(*(x[2:3].clone() for x in base))
+    two = clone_state(base)
+    mine(cfg, one)
+    mine_batched(cfg, two, torch.tensor([False, False, True, False],
+                                        device=cuda))
+    for field, a, b in zip(one._fields, one, two):
+        assert torch.equal(a[0], b[2]), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n,s,delta,window", PHASE_PAIRWISE_CASES)
+def test_pairwise_codes_launch_at_the_phase_shapes(cuda, lanes, n, s, delta,
+                                                   window):
+    """The redesigned codes launch against the plain codes at every
+    pairwise shape of chip_smoke.py's kernels phase; lane 0 alone
+    through the one-lane wrapper."""
+    rng = np.random.default_rng(n * 3 + window)
+    tabs = [make_table(rng, n, s, spread=2 * delta) for _ in range(lanes)]
+    ts, cnt, valid = (torch.as_tensor(np.stack([t[i] for t in tabs]))
+                      for i in range(3))
+    want = pairwise_codes_batched_plain(ts, cnt, valid, delta, window)
+    got = pairwise_codes_batched_kernel(ts.to(cuda), cnt.to(cuda),
+                                        valid.to(cuda), delta, window)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    one = pairwise_codes_kernel(ts[0].to(cuda), cnt[0].to(cuda),
+                                valid[0].to(cuda), delta, window)
+    np.testing.assert_array_equal(one.cpu().numpy(), want[0].numpy())
+
+
+@pytest.mark.cuda
+def test_mine_step_rejects_what_the_kernel_does_not_take(cuda):
+    cfg = MithrilConfig(**MINE_CONFIGS["serving"][0])
+    st = warm_mine_state(cfg, 2, cuda, np.random.default_rng(1))
+    need = torch.ones(2, dtype=torch.bool, device=cuda)
+    mine_step_kernel(cfg, st, need)
+    with pytest.raises(TypeError):                      # int mask
+        mine_step_kernel(cfg, st, need.int())
+    with pytest.raises(ValueError):                     # on the host
+        mine_step_kernel(cfg, st, need.cpu())
+    with pytest.raises(ValueError):                     # one flag short
+        mine_step_kernel(cfg, st, need[:1])
+    with pytest.raises(TypeError):
+        mine_step_kernel(cfg, st._replace(pf_age=st.pf_age.long()), need)
+    with pytest.raises(ValueError):
+        mine_step_kernel(cfg, st._replace(rec_loc=st.rec_loc.cpu()), need)
+    with pytest.raises(ValueError):
+        mine_step_kernel(cfg, st._replace(
+            mine_cnt=st.mine_cnt.reshape(2, 4, 2)), need)
+    with pytest.raises(ValueError):                     # S of another cfg
+        mine_step_kernel(MithrilConfig(**dict(MINE_CONFIGS["serving"][0],
+                                              max_support=4)), st, need)
+    mine_step_kernel(cfg, st, need)
+    torch.cuda.synchronize()

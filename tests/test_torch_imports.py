@@ -44,7 +44,8 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
 ALONE_MODULES = ["repro_torch.cache.tiered", "repro_torch.launch.serve",
                  "repro_torch.kernels.paged_decode",
                  "repro_torch.kernels.hash_lookup",
-                 "repro_torch.kernels.mithril_record"]
+                 "repro_torch.kernels.mithril_record",
+                 "repro_torch.kernels.mithril_mine_step"]
 
 
 @pytest.mark.parametrize("name", ALONE_MODULES)
