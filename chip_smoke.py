@@ -40,18 +40,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
    over it;
 3. parity — the port's ``sweep_scheduled`` over the 16-trace quick
    corpus (4000 requests) for the 9 labels of the benchmark grid at
-   capacity 512, in three processes at once; each label's rounded hit
+   capacity 512, in three processes at once, through the chunk runner
+   (one captured CUDA graph a label, replayed); each label's rounded hit
    ratios (and mean precision) must equal the ``corpus_figures_quick``
-   rows of ``results/bench/BENCH_baseline_quick.json``; a MITHRIL
-   label's mining runs are timed on the host clock and by CUDA events,
-   with one wait after the sweep;
+   rows of ``results/bench/BENCH_baseline_quick.json``; a MITHRIL label
+   is swept again, which must capture nothing and give the same bits,
+   under ``torch.profiler``, whose device time of the mining kernel is
+   the label's mining time;
 4. real size — the paper's deployment: the full 135-trace corpus
    (22.5k-50k requests per trace), the paper's MITHRIL tables and a
    65,536-block cache with 16 ways, ``mithril-lru`` in one sweep of 135
-   lanes; 4 of its traces, one per family, are run again on the CPU
-   through the plain versions (in a child process, meanwhile) and must
-   give equal ``Stats`` (the child starts with the script);
-5. serving — the tiered paged-KV cache under multi-tenant on-off
+   lanes through the runner. Before it: its first 2,000 steps as the
+   eager loop over ``build_batched_step``'s step and through the runner,
+   every carry leaf and hit row equal, both timed; its first 2,048 steps
+   through runners of G = 1, 16 and 128 steps a graph, captured, then
+   timed on a repeat that must capture nothing. 4 of its traces, one per
+   family, are run again on the CPU through the plain versions (in a
+   child process, meanwhile) and must give equal ``Stats`` (the child
+   starts with the script);
+5. streaming — ``sweep_streaming``: (a) ``benchmarks/serving_bench.py``'s
+   ``pipeline_quick`` job, sync then async, every deterministic field
+   equal to the ``streaming`` rows of ``BENCH_baseline_quick.json`` and
+   the async hit curve equal to the sync one; (b) the real-size
+   configuration and corpus through 64 recycled lanes under the job's
+   on-off arrivals with the async producer, each trace's ``Stats`` equal
+   to the offline real-size sweep's; the ``pipeline`` telemetry of each;
+6. serving — the tiered paged-KV cache under multi-tenant on-off
    arrivals through ``launch.serve.TieredServeEngine``, with and without
    MITHRIL: (a) at ``benchmarks/serving_bench.py``'s quick scale, where
    every deterministic field must equal the ``serving`` rows of
@@ -64,10 +78,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    decode over the host pages; each MITHRIL run must launch the miss
    kernel once per demand fetch and the mining run (and the lookup after
    it) once per mining run, and the line gives the host time of a mining
-   run and of a miss outside mining.
+   run and of a miss outside mining;
+7. profile — 300 replayed steps of the real-size sweep under
+   ``torch.profiler``: device idle share, kernels a step, and the launch
+   counters against the profiler's count of the record kernel and the
+   mining run.
 
-The main path is phases 3, 4 and 5: the launch counters are zeroed just
-before the parity sweeps and read after each of the later phases; the
+A captured graph calls no Python at replay, so the runner counts each
+graph's launches at its capture and adds them at every replay: the
+counters stay the launches the card ran. The main path is phases 3-6:
+the launch counters are zeroed just before the parity sweeps and read
+after each of the later phases' main runs; the
 record, lookup and decode kernels, the serving tier's miss launch, the
 fused mining run and the decode's merge must have launched on one of
 them, and the two codes launches on none: the main path mines only
@@ -106,6 +127,16 @@ PARITY_LEN = 4_000
 QUICK_CORPUS_CRC32 = 766487755
 REAL_LEN = 50_000
 CROSS_TRACES = ("seq000", "loop003", "midfreq005", "mixed007")
+REPLAY_STEPS = 2_000          # the replay-equals-eager prefix
+UNROLL_STEPS = 2_048          # the prefix that G is timed on (a multiple
+UNROLLS = (1, 16, 128)        # of each G)
+# a copy of benchmarks/serving_bench.py's PIPE_SCALES["quick"] (a CPU test
+# holds it equal) and the deterministic fields of its streaming rows
+PIPE_QUICK = dict(n_streams=6, stream_len=2500, lane_width=4, chunk=256)
+PIPE_KEYS = ("lane_width", "chunk", "n_slabs", "lane_steps",
+             "ideal_lane_steps", "waste_ratio", "hit_ratio_mean")
+STREAM_WIDTH = 64             # lanes of the full-width stream: they recycle
+STREAM_CHUNK = 1024
 
 KERNEL_INFO = {
     "mithril_record": (
@@ -219,9 +250,30 @@ def fresh_ms(call, restore, reps: int = 30, warm: int = 3):
             statistics.median(host) * 1e3)
 
 
+def trace_kernels(prof, copies: bool = False):
+    """``(name, device microseconds, launches)`` of every CUDA kernel
+    (and, with ``copies``, every copy and fill) in a ``torch.profiler``
+    trace, read from the profiler's raw events (a replayed sweep has
+    millions; the event tables of ``key_averages`` are too slow for
+    that), by name."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = {}
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if ev.device_type() != cuda or (
+                not copies and name.startswith(("Memcpy", "Memset"))):
+            continue
+        us = (ev.duration_ns() / 1e3 if hasattr(ev, "duration_ns")
+              else ev.duration_us())
+        t, n = rows.get(name, (0.0, 0))
+        rows[name] = (t + us, n + 1)
+    return [(k, t, n) for k, (t, n) in rows.items()]
+
+
 def profiled_kernels(fn, reps: int):
-    """``(name, device seconds * 1e6, launches)`` of every CUDA kernel in
-    a ``torch.profiler`` trace of ``reps`` calls of ``fn``."""
+    """``(name, device seconds * 1e6, launches)`` of every CUDA kernel
+    and copy in a ``torch.profiler`` trace of ``reps`` calls of ``fn``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -230,9 +282,7 @@ def profiled_kernels(fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return [(ev.key, getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0.0)),
-             ev.count) for ev in prof.key_averages()]
+    return trace_kernels(prof, copies=True)
 
 
 def device_ms(fn, kernel: str, reps: int = 20):
@@ -1309,11 +1359,16 @@ PARITY_GROUPS = (("mithril-amp-lru", "lru", "fifo"),
 def parity_labels(dev, labels, n_requests: int = PARITY_LEN) -> dict:
     """Sweep the quick corpus through ``labels`` in this process and hold
     each label's rounded hit ratios and mean precision against the
-    baseline row; a MITHRIL label's mining runs are timed
-    (``MineTimer``). Returns the results, launch counts and mining
-    time."""
+    baseline row. Each sweep replays captured graphs, so no Python runs
+    inside a mining run: a MITHRIL label is swept a second time (a repeat
+    at the same geometry, which must capture nothing) under
+    ``torch.profiler``, whose device time of the mining kernel over the
+    sweep is the label's mining time. Returns the results, launch counts
+    (of the first sweeps) and mining times."""
     import numpy as np
-    from repro_torch.cache import sweep_scheduled
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.cache import chunk_runner, sweep_scheduled
     from repro_torch.kernels import ops
     from repro_torch.traces import corpus_suite
     rows = {r["config"]: r for r in json.loads(BASELINE.read_text())["sweeps"]
@@ -1323,17 +1378,12 @@ def parity_labels(dev, labels, n_requests: int = PARITY_LEN) -> dict:
     grid = parity_grid(PARITY_CAPACITY)
     ops.reset_launch_counts()
     t0 = time.time()
-    out, totals, call_ms = {}, dict.fromkeys(MineTimer.KEYS, 0), []
+    out, totals = {}, dict.fromkeys(PARITY_KEYS, 0)
     for label in labels:
         cfg = grid[label]
         row = rows[label]
-        timer = MineTimer() if cfg.use_mithril else None
         t1 = time.time()
-        try:
-            res = sweep_scheduled(cfg, blocks, lengths, device=dev)
-        finally:
-            if timer is not None:
-                timer.close()
+        res = sweep_scheduled(cfg, blocks, lengths, device=dev)
         seconds = time.time() - t1
         hr = [round(float(h), 6) for h in res.hit_ratios()]
         src = pf_src_of(cfg)
@@ -1343,28 +1393,53 @@ def parity_labels(dev, labels, n_requests: int = PARITY_LEN) -> dict:
         ok = (hr == row["hit_ratios"] and prec_mean == row["precision_mean"]
               and round(float(np.mean(res.hit_ratios())), 6)
               == row["hit_ratio_mean"])
+        runner = chunk_runner(cfg, device=dev)
         out[label] = {"hit_ratio_mean": round(float(np.mean(hr)), 6),
                       "precision_mean": prec_mean, "equal": ok,
-                      "seconds": round(seconds, 3)}
+                      "seconds": round(seconds, 3),
+                      "compiles": res.compiles,
+                      "capture_seconds": runner.capture_seconds,
+                      "replays": runner.replays}
         totals["sweep_seconds"] += seconds
-        if timer is not None:
-            out[label].update(mining_seconds=timer.seconds,
-                              mining_device_seconds=timer.device_seconds,
-                              mining_calls=timer.calls,
-                              lanes_mined=timer.mines)
-            totals["mining_seconds"] += timer.seconds
-            totals["mining_device_seconds"] += timer.device_seconds
-            totals["mining_calls"] += timer.calls
-            totals["lanes_mined"] += timer.mines
-            call_ms += [m * 1e3 for m in timer.marks]
+        totals["compiles"] += res.compiles
+        totals["capture_seconds"] += runner.capture_seconds
+        if cfg.use_mithril:
+            counts = ops.launch_counts()
+            lanes_mined = int(runner.carry(len(names))["mith"].n_mines.sum())
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                again = sweep_scheduled(cfg, blocks, lengths, device=dev)
+                torch.cuda.synchronize()
+            ops.set_launch_counts(counts)
+            mine = [(t, n) for k, t, n in trace_kernels(prof)
+                    if "mine_step_kernel" in k]
+            mining = sum(t for t, _ in mine) / 1e6
+            out[label].update(repeat_compiles=again.compiles,
+                              mining_device_seconds=mining,
+                              mining_kernels=sum(n for _, n in mine),
+                              lanes_mined=lanes_mined)
+            totals["mining_device_seconds"] += mining
+            totals["mining_kernels"] += sum(n for _, n in mine)
+            totals["lanes_mined"] += lanes_mined
+            totals["repeat_compiles"] += again.compiles
+            totals["mithril_sweep_seconds"] += seconds
+            if again.compiles != 0 or not np.array_equal(again.hit_curve,
+                                                         res.hit_curve):
+                out[label]["repeat_differs"] = True
+                ok = out[label]["equal"] = False
         if not ok:
             out[label].update(got=hr, want=row["hit_ratios"],
                               want_precision=row["precision_mean"])
     return dict({"labels": out, "launches": ops.launch_counts(),
                  "seconds": time.time() - t0, "traces": len(names),
                  "requests": int(lengths.sum()), "corpus_crc32": crc,
-                 "numpy": np.__version__, "mining_call_device_ms": call_ms},
-                **totals)
+                 "numpy": np.__version__}, **totals)
+
+
+PARITY_KEYS = ("sweep_seconds", "compiles", "capture_seconds",
+               "mining_device_seconds", "mining_kernels", "lanes_mined",
+               "repeat_compiles", "mithril_sweep_seconds")
 
 
 def phase_parity() -> dict:
@@ -1393,22 +1468,15 @@ def phase_parity() -> dict:
         for k, v in r["launches"].items():
             counts[k] = counts.get(k, 0) + v
     seconds = time.time() - t0
-    total = {k: sum(r[k] for r in results) for k in MineTimer.KEYS}
-    calls = [r["mining_call_device_ms"] for r in results]
-    every = sorted(m for c in calls for m in c)
-    total["mining_call_device_ms"] = {
-        "median": statistics.median(every) if every else None,
-        "max": every[-1] if every else None,
-        "first_in_each_process": [c[0] if c else None for c in calls]}
+    total = {k: sum(r[k] for r in results) for k in PARITY_KEYS}
     first = results[0]
     emit(dict({"phase": "parity", "traces": first["traces"],
                "requests": first["requests"],
                "corpus_crc32": first["corpus_crc32"],
                "numpy": first["numpy"], "processes": len(results),
                "labels": labels, "launches": counts, "seconds": seconds,
-               "sweep_seconds": sum(r["seconds"] for r in results),
-               "mining_share": total["mining_seconds"]
-               / total["sweep_seconds"]}, **total))
+               "mining_share": total["mining_device_seconds"]
+               / total["mithril_sweep_seconds"]}, **total))
     crcs = {r["corpus_crc32"] for r in results}
     if crcs != {QUICK_CORPUS_CRC32}:
         fail(f"parity: the generated quick corpus (crc32 {crcs}) is not "
@@ -1416,11 +1484,15 @@ def phase_parity() -> dict:
     bad = [k for k, v in labels.items() if not v["equal"]]
     if bad or len(labels) != 9:
         fail(f"parity: {bad or 'labels missing'} differ from "
-             f"BENCH_baseline_quick.json")
+             f"BENCH_baseline_quick.json (or a repeat sweep differed or "
+             f"captured again)")
     if counts["mithril_record"] == 0 or counts["mithril_mine_step"] == 0 \
             or any(counts[k] for k in OFF_PATH):
         fail(f"parity: the sweeps did not record and mine through the "
              f"record kernel and the mining run alone: {counts}")
+    if total["compiles"] != 9:
+        fail(f"parity: {total['compiles']} graphs captured, not one a "
+             f"label")
     return counts
 
 
@@ -1452,86 +1524,53 @@ def cross_check_child(n_requests: int) -> None:
                       "seconds": res.seconds}), flush=True)
 
 
-class MineTimer:
-    """The card's whole mining run inside ``mithril.mine_batched``,
-    timed without waiting for the card: the host clock of each call (its
-    launch path: what the run costs the host-bound sweep) and a pair of
-    CUDA events around it on the current stream (the run on the device).
-    ``close`` waits once and reads the events and the lanes each call
-    mined. (A synchronise around each call times its own waits: at the
-    16,000 parity barriers, three processes sharing the card, 0.64 ms a
-    call against 0.0016-0.016 ms of kernel.)"""
-
-    KEYS = ("mining_seconds", "mining_device_seconds", "mining_calls",
-            "lanes_mined", "sweep_seconds")
-
-    def __init__(self):
-        import torch
-        from repro_torch.core import mithril
-        self.torch, self.mod, self.orig = torch, mithril, mithril.mine_batched
-        self.seconds, self.calls, self.events, self.needs = 0.0, 0, [], []
-
-        def timed(cfg, states, need, *args, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            t = time.perf_counter()
-            out = self.orig(cfg, states, need, *args, **kw)
-            self.seconds += time.perf_counter() - t
-            end.record()
-            self.calls += 1
-            self.events.append((start, end))
-            self.needs.append(need)
-            return out
-        mithril.mine_batched = timed
-
-    def close(self):
-        """Restore ``mine_batched``, wait for the card once, and read
-        ``device_seconds``, ``mines`` (the lanes mined) and ``marks``
-        (the device seconds of each call that mined a lane)."""
-        self.mod.mine_batched = self.orig
-        self.torch.cuda.synchronize()
-        lanes = ([int(n) for n in self.torch.stack(self.needs).sum(1)]
-                 if self.needs else [])
-        sec = [a.elapsed_time(b) / 1e3 for a, b in self.events]
-        self.device_seconds, self.mines = sum(sec), sum(lanes)
-        self.marks = [t for t, n in zip(sec, lanes) if n]
-
-
-def phase_profile(dev, steps: int = 300):
+def phase_profile(dev, blocks, steps: int = 300):
     """Device busy share of the real-size sweep over its first ``steps``
-    requests, from a ``torch.profiler`` trace: the sum of kernel times
-    over the wall time of the traced sweep, and the kernels that take
-    most of the device time."""
+    requests, replayed, from a ``torch.profiler`` trace: the device time
+    of kernels and copies over the wall time of the traced sweep, the
+    kernels that take most of it, and the launch counters of the traced
+    sweep against the profiler's count of the record kernel and the
+    mining run (they must agree)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.cache import sweep
-    from repro_torch.traces import corpus_suite
-    _, blocks, _ = corpus_suite("full", REAL_LEN)
+    from repro_torch.cache import chunk_runner, sweep
+    from repro_torch.kernels import ops
     blocks = blocks[:, :steps]
     cfg = real_config()
+    runner = chunk_runner(cfg, device=dev)
     sweep(cfg, blocks[:, :20], device=dev)          # warm the allocator
     torch.cuda.synchronize()
+    counts, replays = ops.launch_counts(), runner.replays
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sweep(cfg, blocks, device=dev)
+        res = sweep(cfg, blocks, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        dt = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if dt > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((dt, ev.key, ev.count))
-    busy = sum(r[0] for r in rows) / 1e6
-    rows.sort(reverse=True)
-    emit({"phase": "profile", "steps": steps, "lanes": blocks.shape[0],
-          "wall_seconds": wall, "device_busy_seconds": busy,
-          "device_idle_share": (1.0 - busy / wall) if busy else None,
-          "kernels_per_step": sum(r[2] for r in rows) / steps,
-          "top_device_time": [{"kernel": k[:80], "seconds": t / 1e6,
-                               "count": c} for t, k, c in rows[:8]]})
+    launched = {k: v - counts[k] for k, v in ops.launch_counts().items()}
+    ops.set_launch_counts(counts)       # the main path's counts stay
+    rows = trace_kernels(prof, copies=True)
+    busy = sum(t for _, t, _ in rows) / 1e6
+    kernels = [r for r in rows if not r[0].startswith(("Memcpy", "Memset"))]
+    run = (runner.replays - replays) * runner.unroll
+    traced = {name: sum(n for k, _, n in kernels if sub in k)
+              for name, sub in (("mithril_record", "record_kernel"),
+                                ("mithril_mine_step", "mine_step_kernel"))}
+    rows.sort(key=lambda r: -r[1])
+    info = {"phase": "profile", "steps": steps, "steps_replayed": run,
+            "unroll": runner.unroll, "compiles": res.compiles,
+            "lanes": blocks.shape[0], "wall_seconds": wall,
+            "device_busy_seconds": busy,
+            "device_idle_share": (1.0 - busy / wall) if busy else None,
+            "kernels_per_step": sum(n for _, _, n in kernels) / max(run, 1),
+            "launches": {k: launched[k] for k in traced},
+            "profiler_launches": traced,
+            "top_device_time": [{"kernel": k[:80], "seconds": t / 1e6,
+                                 "count": c} for k, t, c in rows[:8]]}
+    emit(info)
+    if any(traced.values()) and traced != info["launches"]:
+        fail(f"profile: the launch counters {info['launches']} differ "
+             f"from the kernels the profiler saw {traced}")
 
 
 def start_cross_check(n_requests: int = REAL_LEN) -> subprocess.Popen:
@@ -1543,7 +1582,86 @@ def start_cross_check(n_requests: int = REAL_LEN) -> subprocess.Popen:
         env=dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES=""))
 
 
+def replay_equals_eager(cfg, blocks, dev) -> dict:
+    """The first REPLAY_STEPS steps of the real-size sweep twice: the
+    eager loop over ``build_batched_step``'s step (no runner), and
+    ``sweep`` through the runner; every carry leaf and every hit row must
+    be equal. Both are timed."""
+    import numpy as np
+    import torch
+    from repro_torch.cache import build_batched_step, chunk_runner, sweep
+    from repro_torch.cache.sweep import _leaves
+    b = np.ascontiguousarray(blocks[:, :REPLAY_STEPS])
+    lanes = b.shape[0]
+    init, step = build_batched_step(cfg, dev)
+    carry = init(lanes)
+    xs = torch.as_tensor(np.ascontiguousarray(b.T), device=dev)
+    valid = torch.ones(lanes, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hits = torch.stack([step(carry, xs[i], valid)[1]
+                        for i in range(REPLAY_STEPS)])
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t
+    runner = chunk_runner(cfg, device=dev)
+    cap0, captures0 = runner.capture_seconds, runner.captures
+    t = time.perf_counter()
+    res = sweep(cfg, b, device=dev)
+    replay_s = time.perf_counter() - t
+    capture_s = runner.capture_seconds - cap0
+    got = _leaves(runner.carry(lanes))
+    leaves = sum(bool(torch.equal(x, y)) for x, y in zip(got, _leaves(carry)))
+    equal = (leaves == len(got) and
+             np.array_equal(res.hit_curve, hits.cpu().numpy().T))
+    info = {"steps": REPLAY_STEPS, "lanes": lanes, "unroll": runner.unroll,
+            "equal": equal, "leaves_equal": f"{leaves}/{len(got)}",
+            "eager_seconds": eager_s,
+            "eager_ms_per_step": eager_s / REPLAY_STEPS * 1e3,
+            "runner_seconds": replay_s,
+            "runner_ms_per_step": (replay_s - capture_s)
+            / REPLAY_STEPS * 1e3,
+            "captures": runner.captures - captures0,
+            "capture_seconds": capture_s, "compiles": res.compiles,
+            "graph_launches": (runner.graphs[lanes].launches
+                               if lanes in runner.graphs else None)}
+    del carry, hits
+    return info
+
+
+def unroll_times(cfg, blocks, dev) -> dict:
+    """The real-size prefix of UNROLL_STEPS steps through runners of
+    each G in UNROLLS: a first sweep (which captures, unless the graph
+    exists), then a timed repeat that must capture nothing and give the
+    same results."""
+    import numpy as np
+    import torch
+    from repro_torch.cache import chunk_runner, sweep
+    b = np.ascontiguousarray(blocks[:, :UNROLL_STEPS])
+    out, want = {}, None
+    for g in UNROLLS:
+        runner = chunk_runner(cfg, g, dev)
+        cap0 = runner.capture_seconds
+        first = sweep(cfg, b, unroll=g, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        again = sweep(cfg, b, unroll=g, device=dev)
+        seconds = time.perf_counter() - t
+        want = first if want is None else want
+        same = all(np.array_equal(x, y) for x, y in
+                   zip(list(again.stats) + [again.hit_curve, first.hit_curve],
+                       list(want.stats) + [want.hit_curve, want.hit_curve]))
+        out[g] = {"seconds": seconds,
+                  "ms_per_step": seconds / UNROLL_STEPS * 1e3,
+                  "capture_seconds": runner.capture_seconds - cap0,
+                  "compiles": [first.compiles, again.compiles],
+                  "equal": same and again.compiles == 0}
+    return out
+
+
 def phase_real(dev, child: subprocess.Popen, n_requests: int = REAL_LEN):
+    """The real-size sweep through the runner, after the replay-equals-
+    eager check and the timing of G on its prefix; returns the launch
+    counts of the sweep and its corpus and statistics."""
     import numpy as np
     import torch
     from repro_torch.cache import sweep_scheduled
@@ -1553,6 +1671,8 @@ def phase_real(dev, child: subprocess.Popen, n_requests: int = REAL_LEN):
     names, blocks, lengths = corpus_suite("full", n_requests)
     t_gen = time.time() - t_gen
     cfg = real_config()
+    replay = replay_equals_eager(cfg, blocks, dev)
+    unrolls = unroll_times(cfg, blocks, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = ops.launch_counts()
@@ -1564,18 +1684,21 @@ def phase_real(dev, child: subprocess.Popen, n_requests: int = REAL_LEN):
     if not np.isfinite(hr).all() or hr.shape != (len(names),):
         fail("real size: hit ratios are not finite")
     stats = res.stats
+    steps = int(lengths.max())
     info = {"phase": "real_size", "traces": len(names),
             "requests": int(lengths.sum()),
             "requests_min": int(lengths.min()),
             "requests_max": int(lengths.max()),
-            "lane_width": len(names), "steps": int(lengths.max()),
-            "seconds": res.seconds,
+            "lane_width": len(names), "steps": steps,
+            "seconds": res.seconds, "ms_per_step": res.seconds / steps * 1e3,
             "requests_per_s": float(lengths.sum() / res.seconds),
+            "compiles": res.compiles,
             "hit_ratio_mean": float(hr.mean()),
             "prefetch_issued": int(stats.pf_issued[:, 1].sum()),
             "prefetch_used": int(stats.pf_used[:, 1].sum()),
             "max_memory_allocated": int(peak), "launches": counts,
-            "trace_gen_seconds": t_gen}
+            "trace_gen_seconds": t_gen, "replay_vs_eager": replay,
+            "unroll": unrolls}
     out, _ = child.communicate(timeout=1200)
     if child.returncode != 0:
         emit(info)
@@ -1591,11 +1714,135 @@ def phase_real(dev, child: subprocess.Popen, n_requests: int = REAL_LEN):
     info["cpu_cross_check"] = {"traces": cpu["names"], "equal": True,
                                "seconds": cpu["seconds"]}
     emit(info)
+    if not replay["equal"]:
+        fail(f"real size: the runner's replays differ from the eager "
+             f"steps ({replay['leaves_equal']} carry leaves equal)")
+    bad = [g for g, v in unrolls.items() if not v["equal"]]
+    if bad:
+        fail(f"real size: the runners of G = {bad} differ, or captured "
+             f"again on a repeat")
+    if counts["mithril_record"] < steps or \
+            counts["mithril_mine_step"] < steps:
+        fail(f"real size: the replays did not count a record launch and a "
+             f"mining run a step: {counts}")
+    return counts, (names, blocks, lengths, stats)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the streaming engine
+# ---------------------------------------------------------------------------
+
+def pipe_config():
+    """``benchmarks/serving_bench.py``'s PIPE_CFG (a CPU test holds the
+    copy equal)."""
+    from repro_torch.cache import SimConfig
+    from repro_torch.core import MithrilConfig
+    return SimConfig(capacity=128, use_mithril=True, use_amp=True,
+                     mithril=MithrilConfig(min_support=2, max_support=6,
+                                           lookahead=30, rec_buckets=256,
+                                           rec_ways=4, mine_rows=32,
+                                           pf_buckets=256, pf_ways=4))
+
+
+def pipeline_job(dev, async_producer: bool, warm: bool = True):
+    """``benchmarks/serving_bench.py``'s pipeline job at PIPE_QUICK: the
+    streamed tenants, their on-off arrivals, a warm-up sweep of two
+    short streams (the graph's capture) when ``warm``.
+    Returns the StreamResult and its ``streaming_stats()`` with
+    ``hit_ratio_mean``."""
+    import numpy as np
+    from repro_torch.cache import sweep_streaming
+    from repro_torch.traces import arrival_process, mixed
+    geo, cfg = PIPE_QUICK, pipe_config()
+    traces = {f"s{i:02d}": mixed(geo["stream_len"] + 137 * i, 0.3, 0.4,
+                                 0.3, seed=40 + i)
+              for i in range(geo["n_streams"])}
+    arrivals = arrival_process(traces, mode="onoff", burst_len=64,
+                               idle_len=32, stagger=geo["chunk"], seed=7)
+    if warm:
+        sweep_streaming(cfg, {k: v[: geo["chunk"] * 2] for k, v in
+                              list(traces.items())[:2]},
+                        lane_width=geo["lane_width"], chunk=geo["chunk"],
+                        async_producer=False, device=dev)
+    stream = sweep_streaming(cfg, traces,
+                             arrivals=[arrivals[k] for k in traces],
+                             lane_width=geo["lane_width"],
+                             chunk=geo["chunk"],
+                             async_producer=async_producer, device=dev)
+    st = stream.streaming_stats()
+    st["hit_ratio_mean"] = round(float(np.mean(stream.result.hit_ratios())),
+                                 6)
+    return stream, st
+
+
+def phase_streaming(dev, real) -> dict:
+    """(a) the pipeline job at quick scale, sync then async, against the
+    ``pipeline_quick`` rows, the async hit curve equal to the sync one;
+    (b) the real-size configuration and corpus through a recycled pool of
+    STREAM_WIDTH lanes under the job's on-off arrivals, async, each
+    trace's Stats equal to the offline real-size sweep's. Returns the
+    launch counts of both."""
+    import numpy as np
+    import torch
+    from repro_torch.cache import chunk_runner, sweep_streaming
+    from repro_torch.kernels import ops
+    from repro_torch.traces import arrival_process
+    rows = {r["config"]: r for r in json.loads(BASELINE.read_text())[
+        "streaming"] if r["job"] == "pipeline_quick"}
+    before = ops.launch_counts()
+    t0 = time.time()
+    quick, streams = {}, {}
+    for mode, async_on in (("sync", False), ("async", True)):
+        stream, st = pipeline_job(dev, async_on, warm=not async_on)
+        streams[mode] = stream
+        quick[mode] = dict(st, compiles=stream.result.compiles,
+                           seconds=stream.result.seconds,
+                           equal=all(st[k] == rows[mode][k]
+                                     for k in PIPE_KEYS))
+    a, s = streams["async"].result, streams["sync"].result
+    async_same = np.array_equal(a.hit_curve, s.hit_curve) and all(
+        np.array_equal(x, y) for x, y in zip(a.stats, s.stats))
+    names, blocks, lengths, offline = real
+    traces = {n: blocks[i, : lengths[i]] for i, n in enumerate(names)}
+    arr = arrival_process(traces, mode="onoff", burst_len=64, idle_len=32,
+                          stagger=STREAM_CHUNK, seed=7)
+    cfg = real_config()
+    runner = chunk_runner(cfg, device=dev)
+    replays = runner.replays
+    full = sweep_streaming(cfg, traces, arrivals=[arr[k] for k in traces],
+                           lane_width=STREAM_WIDTH, chunk=STREAM_CHUNK,
+                           async_producer=True, device=dev)
+    req = sum(len(t) for t in traces.values())
+    same = [bool(np.array_equal(np.asarray(getattr(full.result.stats, f)),
+                                np.asarray(getattr(offline, f))))
+            for f in offline._fields]
+    counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    info = {"phase": "streaming", "quick": quick,
+            "quick_async_equals_sync": async_same,
+            "full": dict(full.streaming_stats(), traces=len(traces),
+                         requests=req, seconds=full.result.seconds,
+                         requests_per_s=req / full.result.seconds,
+                         compiles=full.result.compiles,
+                         replays=runner.replays - replays,
+                         hit_ratio_mean=float(
+                             np.mean(full.result.hit_ratios())),
+                         stats_equal_offline=same),
+            "launches": counts, "seconds": time.time() - t0}
+    emit(info)
+    bad = [m for m, v in quick.items() if not v["equal"]]
+    if bad:
+        fail(f"streaming: {bad} differ from the pipeline_quick rows")
+    if not async_same:
+        fail("streaming: the async pipeline differs from the sync one")
+    if not all(same):
+        fail(f"streaming: the recycled full-width stream differs from the "
+             f"offline real-size sweep in "
+             f"{[f for f, ok in zip(offline._fields, same) if not ok]}")
     return counts
 
 
 # ---------------------------------------------------------------------------
-# phase 5: serving over the tiered paged-KV cache
+# phase 6: serving over the tiered paged-KV cache
 # ---------------------------------------------------------------------------
 
 # copies of benchmarks/serving_bench.py's PAGE, SCALES and MCFG (this
@@ -2009,7 +2256,8 @@ def run(children: dict, t_start: float) -> int:
     from repro_torch.kernels import ops
     ops.reset_launch_counts()
     by_path = {"parity": phase_parity()}
-    by_path["real_size"] = phase_real(dev, children["real_size"])
+    by_path["real_size"], real = phase_real(dev, children["real_size"])
+    by_path["streaming"] = phase_streaming(dev, real)
     by_path["serving"] = phase_serving(dev, children["serving"])
     counts = {k: sum(c[k] for c in by_path.values()) for k in KERNEL_INFO}
     merges = by_path["serving"]["paged_decode_merge"]    # only serving
@@ -2021,7 +2269,7 @@ def run(children: dict, t_start: float) -> int:
     composed = {k: counts[k] for k in OFF_PATH if counts[k]}
     if composed:
         fail(f"the main path mined through the codes launches: {composed}")
-    phase_profile(dev)
+    phase_profile(dev, real[1])
 
     # each kernel timed at the shape the main path launches it most:
     # record at the real-size sweep's (paper tables, 135 lanes; its

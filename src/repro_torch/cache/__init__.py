@@ -1,5 +1,5 @@
 """Cache substrate on tensors: replacement policies, prefetchers, the
-trace simulator and the batched sweep."""
+trace simulator, the batched sweep and the streaming engine."""
 
 from .base import (CacheState, Evicted, N_PF_SRC, PF_AMP, PF_MITHRIL,
                    PF_NONE, PF_PG, access, contains, init_cache,
@@ -8,9 +8,11 @@ from .amp import AmpConfig, AmpState, amp_access, init_amp
 from .pg import PgConfig, PgState, init_pg, pg_access
 from .simulator import (SimConfig, SimResult, SimSession, Stats,
                         build_segments, build_step, max_hit_ratio, simulate)
-from .sweep import (LaneGroup, PaddedSuite, SweepPlan, SweepResult,
-                    build_batched_step, pad_traces, plan_sweep, sweep,
-                    sweep_grid, sweep_scheduled, wide_plan)
+from .sweep import (LaneGroup, PaddedSuite, RingBuffer, StreamResult,
+                    SweepPlan, SweepResult, build_batched_step, chunk_runner,
+                    compile_count, pad_traces, plan_sweep, reset_runners,
+                    sweep, sweep_grid, sweep_scheduled, sweep_streaming,
+                    wide_plan)
 
 __all__ = [
     "CacheState", "Evicted", "access", "contains", "init_cache",
@@ -19,7 +21,8 @@ __all__ = [
     "PgConfig", "PgState", "init_pg", "pg_access",
     "SimConfig", "SimResult", "SimSession", "Stats", "build_segments",
     "build_step", "max_hit_ratio", "simulate",
-    "LaneGroup", "PaddedSuite", "SweepPlan", "SweepResult",
-    "build_batched_step", "pad_traces", "plan_sweep", "sweep", "sweep_grid",
-    "sweep_scheduled", "wide_plan",
+    "LaneGroup", "PaddedSuite", "RingBuffer", "StreamResult", "SweepPlan",
+    "SweepResult", "build_batched_step", "chunk_runner", "compile_count",
+    "pad_traces", "plan_sweep", "reset_runners", "sweep", "sweep_grid",
+    "sweep_scheduled", "sweep_streaming", "wide_plan",
 ]

@@ -124,12 +124,15 @@ def pg_access(cfg: PgConfig, st: PgState, block: torch.Tensor,
     qual = (nbrs != EMPTY) & (counts * cfg.min_chance_den
                               >= occ * cfg.min_chance_num)
     score = torch.where(qual, counts, -1)
+    slots = arange(cfg.out_degree, block.device)
     cands = []
     for _ in range(cfg.max_prefetch):
         k = score.argmax(-1)
         ok = score[ar, k] > 0
         cands.append(torch.where(ok, nbrs[ar, k], EMPTY))
-        score[ar, k] = -1
+        # a taken slot drops out (a select, not a scalar write: no host
+        # value is copied, so a CUDA graph can capture the step)
+        score = torch.where(slots == k[:, None], -1, score)
     out = torch.stack(cands, 1)
 
     # slide history ring

@@ -95,9 +95,17 @@ def _count(table: torch.Tensor, col: torch.Tensor, flag: torch.Tensor):
 
 
 def _apply_prefetches(cfg, cache, stats, cands, src, enable, scorer=None):
-    """Insert a (B, K) candidate matrix; collect eviction feedback."""
+    """Insert a (B, K) candidate matrix; collect eviction feedback.
+
+    An EMPTY candidate inserts nothing, issues nothing and evicts
+    nothing, so on the CPU a column that is EMPTY in every lane is
+    skipped (one host read; on the card the step reads nothing on the
+    host and inserts every column)."""
     evs = []
-    for i in range(cands.shape[1]):
+    cols = range(cands.shape[1])
+    if not cands.is_cuda:
+        cols = torch.nonzero((cands != EMPTY).any(0)).flatten().tolist()
+    for i in cols:
         cache, issued, ev = base.insert_prefetch(cache, cands[:, i], src,
                                                  enable, scorer=scorer)
         stats.pf_issued[:, src] += issued.to(torch.int32)

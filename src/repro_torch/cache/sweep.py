@@ -1,6 +1,7 @@
-"""Batched trace sweep: a corpus of traces advanced lane by lane.
+"""Batched trace sweep and the streaming engine: a corpus of traces
+advanced lane by lane.
 
-Counterpart of the batch half of ``repro/cache/sweep.py``:
+Counterpart of ``repro/cache/sweep.py``:
 
 * ``pad_traces`` stacks a suite of traces to a common length;
 * ``build_batched_step`` advances every trace lane by one request:
@@ -10,30 +11,46 @@ Counterpart of the batch half of ``repro/cache/sweep.py``:
   each mining barrier is ``mithril.mine_batched`` on the device mask of
   the lanes that filled their mining table: on the card one launch of
   the fused mining run and no host wait;
-* ``sweep`` is the plain loop over ``(chunk, B)`` request slabs — the
-  reference's offline special case of its streaming engine;
+* the chunk runner (``_runner``, ``compile_count``, ``reset_runners``),
+  the counterpart of the reference's jitted ``lax.scan`` of a chunk: on
+  the card, for each configuration, ``unroll`` = G and lane width W, one
+  ``torch.cuda.CUDAGraph`` of G steps captured over a static carry and
+  static ``(G, W)`` inputs, replayed ``chunk / G`` times a slab (a
+  capture is what the reference counts as a compile); on the CPU the
+  eager loop over the step;
+* ``sweep_streaming`` is the streaming engine: traces are admitted in
+  FIFO order into a recycled pool of lanes at slab boundaries, arrival
+  gaps become invalid rows, a drained lane is reset in place
+  (``_masked_reset``), slabs stage through a :class:`RingBuffer` ahead
+  of the device and, with ``async_producer``, a producer thread stages
+  them and a drain thread brings the hits back;
+* ``sweep`` is its offline special case (lane width B, every trace at
+  step 0), as in the reference;
 * ``plan_sweep`` is the reference's cost-model packer (one device, so
   ``n_shards`` is 1); ``sweep_scheduled`` runs a corpus through a plan,
   by default ``wide_plan``: one group of every trace. The packer prices
-  XLA-compiled slab shapes, which the port does not have; here a
-  request step costs about the same at any lane width, so the fewest
-  groups are the fastest schedule.
+  XLA-compiled slab shapes; here a request step costs about the same at
+  any lane width, so the fewest groups are the fastest schedule.
 
 Padded-tail requests carry ``valid=False`` into every segment, whose
 updates then write back old values: an exhausted lane can neither change
 state, contribute to statistics, nor trigger mining, so per-trace
-results are bit-identical to simulating each trace alone. Steps past
-the longest trace of a batch would be no-ops on every lane and are not
-run. PyTorch runs eagerly, so ``SweepResult.compiles`` is always 0.
-
-Streaming, the ring buffer and lane sharding are not ported yet.
+results are bit-identical to simulating each trace alone. Groups of
+steps in which no lane is valid are therefore skipped, on the card and
+on the CPU alike. Lane sharding over several devices is not ported:
+``shard`` is accepted and means the one device.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import functools
+import queue as _queue_mod
+import threading
 import time
-from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple, \
-    Union
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, \
+    Tuple, Union
 
 import numpy as np
 import torch
@@ -45,6 +62,9 @@ from .simulator import Device, SimConfig, SimResult, Stats, build_segments
 
 DEFAULT_CHUNK = 4096
 DEFAULT_LANE_WIDTH = 16     # lanes per scheduled group
+# request steps in one captured graph: the fastest of G = 1, 16 and 128
+# on the real-size prefix (PERF.md)
+DEFAULT_UNROLL = 16
 
 
 class PaddedSuite(NamedTuple):
@@ -80,6 +100,8 @@ def build_batched_step(cfg: SimConfig, device: Device = None):
     record kernel once per segment (its plain version for CPU tensors);
     each mining barrier mines exactly the live lanes whose table filled:
     on the card one launch of the fused mining run on the device mask.
+    On the card the step reads nothing on the host, so a CUDA graph can
+    capture it.
     """
     dev = resolve_device(device)
     init_carry, segments = build_segments(cfg, dev)
@@ -110,11 +132,194 @@ def build_batched_step(cfg: SimConfig, device: Device = None):
     return init_batched, step
 
 
+# ---------------------------------------------------------------------------
+# The chunk runner: captured CUDA graphs of the request step on the card
+# ---------------------------------------------------------------------------
+
+def _leaves(carry) -> List[torch.Tensor]:
+    """Every tensor of a sweep carry, in one fixed order."""
+    return [leaf for part in carry.values() for leaf in part]
+
+
+def _assign(carry, template) -> None:
+    """Every lane of ``carry`` becomes the template's, in place."""
+    for c, t in zip(_leaves(carry), _leaves(template)):
+        c.copy_(t)
+
+
+def _masked_reset(carry, template, mask: torch.Tensor):
+    """Lane recycling: where ``mask`` (W,) is set, the lane's carry
+    becomes the init template bit for bit; every other lane keeps its
+    state untouched. A recycled lane is therefore indistinguishable from
+    a fresh lane in a fresh batch. In place: the captured graphs and the
+    bound kernel launchers hold the carry's addresses, so no tensor of
+    it is rebound."""
+    for c, t in zip(_leaves(carry), _leaves(template)):
+        torch.where(mask.view((-1,) + (1,) * (c.dim() - 1)), t, c, out=c)
+    return carry
+
+
+class _Graph(NamedTuple):
+    """One captured graph of G request steps at lane width W."""
+    carry: dict                 # the static carry the graph steps
+    blocks: torch.Tensor        # (G, W) int32, static input
+    valid: torch.Tensor         # (G, W) bool, static input
+    hits: torch.Tensor          # (G, W) bool, static output
+    graph: "torch.cuda.CUDAGraph"
+    launches: Dict[str, int]    # kernel launches of a replay, by wrapper
+
+
+class ChunkRunner:
+    """Runs ``(chunk, W)`` request slabs of one configuration.
+
+    On the card each lane width gets, at its first use, a static carry,
+    static ``(G, W)`` block, valid and hit buffers and one CUDA graph of
+    ``G = unroll`` calls of ``step``, step g reading row g and writing
+    hits row g. A slab runs as ``ceil(chunk / G)`` replays: before each,
+    the slab's next G rows are copied into the static inputs (a short
+    last group is padded with invalid rows, which are no-ops); after it,
+    the hit rows are copied out. A group of rows with no valid lane is a
+    no-op on every lane and is not replayed. Before each capture
+    one eager step with every lane invalid runs on a side stream, so
+    that cached constants, each kernel's first launch and the mining
+    run's shared-memory limit are set up outside the capture. A capture
+    that fails raises: the card never falls back to eager steps.
+
+    The kernel wrappers count launches in Python, which runs at capture
+    and not at replay: the runner takes back what the capture counted
+    and adds it again at every replay, so ``ops.launch_counts()`` stays
+    the number of launches the card ran.
+
+    On the CPU ``run`` is the eager loop over the step (the plain
+    kernels), every row that holds a valid lane, and nothing is
+    captured. One sweep at a time may use a runner.
+    """
+
+    def __init__(self, cfg: SimConfig, unroll: int, device: torch.device):
+        if isinstance(unroll, bool) or not isinstance(
+                unroll, (int, np.integer)) or unroll < 1:
+            raise ValueError(f"unroll must be an int >= 1, got {unroll!r}")
+        self.cfg, self.unroll, self.device = cfg, int(unroll), device
+        self.init_batched, self.step = build_batched_step(cfg, device)
+        self.graphs: Dict[int, _Graph] = {}
+        self.capture_seconds = 0.0
+        self.replays = 0
+
+    @property
+    def captures(self) -> int:
+        """Graphs captured so far (one per lane width; 0 on the CPU)."""
+        return len(self.graphs)
+
+    def carry(self, lanes: int):
+        """The carry that ``run`` advances at this width: on the card the
+        width's static carry (its graph is captured at the first call),
+        on the CPU a fresh one."""
+        if self.device.type != "cuda":
+            return self.init_batched(lanes)
+        if lanes not in self.graphs:
+            self.graphs[lanes] = self._capture(lanes)
+        return self.graphs[lanes].carry
+
+    def _capture(self, lanes: int) -> _Graph:
+        dev, g = self.device, self.unroll
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.step(self.init_batched(lanes),
+                      torch.zeros(lanes, dtype=torch.int32, device=dev),
+                      torch.zeros(lanes, dtype=torch.bool, device=dev))
+        torch.cuda.synchronize(dev)
+        carry = self.init_batched(lanes)
+        blocks = torch.zeros((g, lanes), dtype=torch.int32, device=dev)
+        valid = torch.zeros((g, lanes), dtype=torch.bool, device=dev)
+        hits = torch.zeros((g, lanes), dtype=torch.bool, device=dev)
+        graph = torch.cuda.CUDAGraph()
+        before = ops.launch_counts()
+        try:
+            with torch.cuda.graph(graph):
+                for i in range(g):
+                    hits[i].copy_(self.step(carry, blocks[i], valid[i])[1])
+        finally:
+            counted = ops.launch_counts()
+            ops.set_launch_counts(before)
+        torch.cuda.synchronize(dev)
+        self.capture_seconds += time.perf_counter() - t0
+        return _Graph(carry, blocks, valid, hits, graph,
+                      {k: n - before[k] for k, n in counted.items()
+                       if n != before[k]})
+
+    def run(self, carry, blocks: torch.Tensor, valid: torch.Tensor,
+            live: np.ndarray) -> torch.Tensor:
+        """Advance ``carry`` through the ``(chunk, W)`` slab in place;
+        ``live`` (chunk,) says which rows hold a valid lane. Returns the
+        ``(chunk, W)`` hits on the device, without waiting for them."""
+        chunk, lanes = blocks.shape
+        hits = torch.zeros((chunk, lanes), dtype=torch.bool,
+                           device=blocks.device)
+        if self.device.type != "cuda":
+            for t in np.flatnonzero(live):
+                hits[t] = self.step(carry, blocks[t], valid[t])[1]
+            return hits
+        cap = self.graphs.get(lanes)
+        if cap is None or carry is not cap.carry:
+            raise ValueError("a runner on the card advances its own carry: "
+                             "pass runner.carry(lanes)")
+        g = self.unroll
+        starts = np.arange(0, chunk, g)
+        starts = starts[np.logical_or.reduceat(live, starts)]
+        for r0 in starts.tolist():
+            n = min(g, chunk - r0)
+            cap.blocks[:n].copy_(blocks[r0:r0 + n])
+            cap.valid[:n].copy_(valid[r0:r0 + n])
+            if n < g:
+                cap.valid[n:].zero_()
+            cap.graph.replay()
+            hits[r0:r0 + n].copy_(cap.hits[:n])
+        self.replays += len(starts)
+        ops.add_launch_counts(cap.launches, len(starts))
+        return hits
+
+
+def _device(device: Device) -> torch.device:
+    """``resolve_device`` with the card's index filled in (a cache key)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _runner(cfg: SimConfig, unroll: int, device: torch.device
+            ) -> ChunkRunner:
+    """One chunk runner per (config, steps a graph, device)."""
+    return ChunkRunner(cfg, unroll, device)
+
+
+def chunk_runner(cfg: SimConfig, unroll: int = DEFAULT_UNROLL,
+                 device: Device = None) -> ChunkRunner:
+    """The cached runner that sweeps of ``cfg`` at ``unroll`` use."""
+    return _runner(cfg, unroll, _device(device))
+
+
+def compile_count(cfg: SimConfig, unroll: int = DEFAULT_UNROLL,
+                  device: Device = None) -> int:
+    """Graphs captured by ``cfg``'s chunk runner: one per lane width, so
+    a repeat sweep at the same geometry captures none (0 on the CPU)."""
+    return chunk_runner(cfg, unroll, device).captures
+
+
+def reset_runners() -> None:
+    """Drop the cached runners and their graphs (test isolation for
+    capture counts)."""
+    _runner.cache_clear()
+
+
 class SweepResult(NamedTuple):
     stats: Stats            # numpy, every leaf with a leading (B,) axis
     hit_curve: np.ndarray   # (B, T) bool, False past each trace's length
     lengths: np.ndarray     # (B,)
-    compiles: int           # always 0: PyTorch runs eagerly
+    compiles: int           # graphs this sweep captured (0 = all cached)
     seconds: float          # wall-clock for this sweep call
 
     @property
@@ -148,18 +353,21 @@ def _check_lengths(lengths, n: int, t_max: int) -> np.ndarray:
 
 def sweep(cfg: SimConfig, blocks: np.ndarray,
           lengths: Optional[np.ndarray] = None,
-          chunk: int = DEFAULT_CHUNK,
+          chunk: int = DEFAULT_CHUNK, unroll: int = DEFAULT_UNROLL,
+          shard: Optional[bool] = None,
           device: Device = None) -> SweepResult:
     """Run a (B, T) padded trace batch through one configuration.
 
+    The offline special case of :func:`sweep_streaming`: every trace is
+    submitted at step 0 on its own lane (``lane_width = B``), so the
+    whole batch is admitted into the first slab and no lane recycles.
     ``lengths`` gives each trace's valid prefix (default: full T);
     requests past it are bit-exact no-ops excluded from all statistics.
-    Requests are staged on the device one ``(chunk, B)`` slab at a time
-    and hits come back per slab. Results are bit-identical to running
-    each trace through ``simulate`` alone.
+    Results are bit-identical to running each trace through ``simulate``
+    alone. ``unroll`` is the steps of one captured graph on the card;
+    ``compiles`` counts the graphs this call captured.
     """
     t0 = time.time()
-    dev = resolve_device(device)
     blocks = np.ascontiguousarray(np.asarray(blocks, np.int32))
     if blocks.ndim != 2:
         raise ValueError(f"blocks must be (B, T), got {blocks.shape}")
@@ -167,26 +375,11 @@ def sweep(cfg: SimConfig, blocks: np.ndarray,
     lengths = _check_lengths(lengths, n_traces, n_req)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-
-    init_batched, step = build_batched_step(cfg, dev)
-    carry = init_batched(n_traces)
-    hit = np.zeros((n_traces, n_req), bool)
-    lens = torch.as_tensor(lengths, device=dev)
-    t_end = int(lengths.max()) if n_traces else 0
-    for c0 in range(0, t_end, chunk):
-        c1 = min(c0 + chunk, t_end)
-        slab = torch.as_tensor(np.ascontiguousarray(blocks[:, c0:c1].T),
-                               device=dev)
-        valid = (torch.arange(c0, c1, device=dev)[:, None] < lens[None, :])
-        hits = []
-        for t in range(c1 - c0):
-            carry, h = step(carry, slab[t], valid[t])
-            hits.append(h)
-        hit[:, c0:c1] = torch.stack(hits, 1).cpu().numpy()
-
-    from ..convert import to_numpy
-    return SweepResult(stats=Stats(*to_numpy(carry["stats"])),
-                       hit_curve=hit, lengths=lengths, compiles=0,
+    res = sweep_streaming(cfg, blocks, lengths=lengths,
+                          lane_width=n_traces, chunk=chunk, unroll=unroll,
+                          shard=shard, device=device).result
+    return SweepResult(stats=res.stats, hit_curve=res.hit_curve,
+                       lengths=lengths, compiles=res.compiles,
                        seconds=time.time() - t0)
 
 
@@ -484,6 +677,7 @@ def sweep_scheduled(cfg: SimConfig,
     ORIGINAL trace order. Statistics are bit-identical to sweeping (or
     serially simulating) each trace alone; groups holding fewer traces
     than their lane width are padded with empty (length-0) lanes.
+    ``compiles`` sums the groups' captures.
     """
     t0 = time.time()
     dev = resolve_device(device)
@@ -505,6 +699,7 @@ def sweep_scheduled(cfg: SimConfig,
 
     stats_out = None
     hit = np.zeros((n, t_max), bool)
+    compiles = 0
     for g in plan.groups:
         gb = np.zeros((g.lane_width, g.padded_t), np.int32)
         gl = np.zeros((g.lane_width,), np.int64)
@@ -513,6 +708,7 @@ def sweep_scheduled(cfg: SimConfig,
             gb[j, :ln] = blocks[idx, :ln]
             gl[j] = ln
         res = sweep(cfg, gb, gl, chunk=g.chunk, device=dev)
+        compiles += res.compiles
         if stats_out is None:
             stats_out = [np.zeros((n,) + leaf.shape[1:], leaf.dtype)
                          for leaf in res.stats]
@@ -523,7 +719,7 @@ def sweep_scheduled(cfg: SimConfig,
                 leaf_out[idx] = leaf[j]
 
     return SweepResult(stats=Stats(*stats_out), hit_curve=hit,
-                       lengths=lengths, compiles=0,
+                       lengths=lengths, compiles=compiles,
                        seconds=time.time() - t0)
 
 
@@ -541,3 +737,641 @@ def sweep_grid(cfgs: Dict[str, SimConfig], blocks: np.ndarray,
                               device=device)
         out[name] = memo[cfg]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Streaming ingestion engine: ring-buffered slabs, lane recycling
+# ---------------------------------------------------------------------------
+
+DEFAULT_RING_DEPTH = 4      # slabs the producer stages ahead of the device
+
+
+class _Tenant:
+    """Host-side bookkeeping for one submitted trace.
+
+    ``avail`` (optional, same length as the trace) gives each request's
+    arrival step on the engine's virtual clock, nondecreasing; ``None``
+    means the whole trace is available at step 0 (the offline case).
+    ``cursor`` is the next unplaced request — the ONLY progress state,
+    and it is host-known, which is what lets the scheduler run ahead of
+    the device (see :class:`RingBuffer`).
+    """
+
+    __slots__ = ("index", "blocks", "avail", "length", "cursor")
+
+    def __init__(self, index: int, blocks: np.ndarray,
+                 avail: Optional[np.ndarray], length: int):
+        self.index = index
+        self.blocks = blocks
+        self.avail = avail
+        self.length = length
+        self.cursor = 0
+
+
+class _Staging(NamedTuple):
+    """Host arrays of one slab (blocks, valid, the admission mask, hits)
+    and the tensors that share their memory: pinned on the card's async
+    path, where a pool recycles them."""
+    blocks: np.ndarray                  # (chunk, W) int32
+    valid: np.ndarray                   # (chunk, W) bool
+    reset: np.ndarray                   # (W,) bool
+    hits: np.ndarray                    # (chunk, W) bool
+    tensors: Tuple[torch.Tensor, ...]   # the four, as tensors
+
+
+def _staging(chunk: int, lanes: int, pinned: bool) -> _Staging:
+    ts = tuple(torch.zeros(shape, dtype=dtype, pin_memory=pinned)
+               for shape, dtype in (((chunk, lanes), torch.int32),
+                                    ((chunk, lanes), torch.bool),
+                                    ((lanes,), torch.bool),
+                                    ((chunk, lanes), torch.bool)))
+    return _Staging(*(t.numpy() for t in ts), ts)
+
+
+class _Slab(NamedTuple):
+    """One staged ``(chunk, W)`` request slab plus its host-side routing.
+
+    ``placements`` maps device outputs back to traces: for each lane
+    that placed requests, ``(lane, tenant, cursor0, row0, k, positions)``
+    says requests ``cursor0 .. cursor0+k-1`` of ``tenant`` sit at slab
+    rows ``row0 .. row0+k-1`` when ``positions`` is ``None`` (the
+    contiguous fast path — offline traces always, arrival traces
+    whenever the placed run has no interior gap), else at
+    ``positions[0..k-1]``. ``harvest`` lists ``(tenant, lane)`` pairs
+    that drain once this slab runs — the consumer copies those lanes'
+    statistics on the device before the next slab changes the carry in
+    place. ``live`` says which rows hold a valid lane (the others are
+    not run). ``buffers`` holds the host staging so the async drain can
+    recycle it into the producer's pool, and ``ready`` is the event of
+    its upload on the card (``None`` on the synchronous path, where
+    staging is throwaway, and on the CPU).
+    """
+
+    blocks: torch.Tensor                    # (chunk, W) int32, staged
+    valid: torch.Tensor                     # (chunk, W) bool, staged
+    reset: Optional[torch.Tensor]           # (W,) bool; None = no admission
+    live: np.ndarray                        # (chunk,) bool
+    placements: Tuple[Tuple[int, int, int, int, int,
+                            Optional[np.ndarray]], ...]
+    harvest: Tuple[Tuple[int, int], ...]
+    buffers: Optional[_Staging] = None
+    ready: Optional["torch.cuda.Event"] = None
+
+
+class RingBuffer:
+    """Thread-safe bounded FIFO ring of staged request slabs.
+
+    The producer (the host scheduler, its own thread under
+    ``async_producer=True``) stages up to ``depth`` slabs ahead of the
+    consumer (the chunk runner): host marshalling and H2D staging of
+    slabs k+1..k+depth overlap slab k's compute. Admission and placement
+    depend only on host-known cursors — never on device results — which
+    is what makes the produce-ahead legal; the depth bounds in-flight
+    device memory at ``depth * chunk * W`` request slots.
+
+    ``push``/``pop`` default to the non-blocking semantics the
+    synchronous engine uses (full push / empty pop raise a clear
+    ``RuntimeError``); ``block=True`` waits on a condition variable
+    instead and counts each wait in the stall telemetry: a producer
+    that blocked on a full ring bumps ``push_stalls`` (device is the
+    bottleneck), a consumer that blocked on an empty ring bumps
+    ``pop_stalls`` (host marshalling is the bottleneck). ``close()``
+    wakes every waiter; a blocking pop on a closed, drained ring
+    returns ``None`` (end of stream).
+    """
+
+    def __init__(self, depth: int = DEFAULT_RING_DEPTH):
+        if isinstance(depth, bool) or not isinstance(
+                depth, (int, np.integer)) or depth < 1:
+            raise ValueError(f"ring depth must be an int >= 1, "
+                             f"got {depth!r}")
+        self.depth = int(depth)
+        self._q: collections.deque = collections.deque()
+        self._cv = threading.Condition()
+        self._closed = False
+        self.push_stalls = 0    # producer waited on a full ring
+        self.pop_stalls = 0     # consumer waited on an empty ring
+
+    def __len__(self) -> int:
+        return len(self._q)
+
+    @property
+    def full(self) -> bool:
+        return len(self._q) >= self.depth
+
+    @property
+    def empty(self) -> bool:
+        return not self._q
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def close(self) -> None:
+        """End of stream: wake all waiters; further pushes are errors."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+
+    def push(self, slab: _Slab, block: bool = False) -> None:
+        with self._cv:
+            if len(self._q) >= self.depth:
+                if not block:
+                    raise RuntimeError(
+                        "ring buffer full — pop before pushing")
+                self.push_stalls += 1
+                while len(self._q) >= self.depth and not self._closed:
+                    self._cv.wait()
+            if self._closed:
+                raise RuntimeError("ring buffer closed")
+            self._q.append(slab)
+            self._cv.notify_all()
+
+    def pop(self, block: bool = False) -> Optional[_Slab]:
+        with self._cv:
+            if not self._q:
+                if not block:
+                    raise RuntimeError(
+                        "ring buffer empty — push (produce) before popping")
+                if not self._closed:
+                    self.pop_stalls += 1
+                    while not self._q and not self._closed:
+                        self._cv.wait()
+            if not self._q:
+                return None         # closed and fully drained
+            slab = self._q.popleft()
+            self._cv.notify_all()
+            return slab
+
+
+class StreamResult(NamedTuple):
+    """Streaming-engine result plus schedule telemetry.
+
+    ``result`` carries per-trace statistics in SUBMISSION order — the
+    same :class:`SweepResult` type the offline engines return, and per
+    trace bit-identical to them (lane assignment, slab chunking and
+    arrival gaps are all invisible under the masking contract).
+    ``lane_steps`` is the executed (lane x request) slot count — the
+    recycling analogue of ``SweepPlan.padded_lane_steps``, counted as
+    the reference counts it (rows with no valid lane, which the runner
+    skips, included).
+
+    ``pipeline`` carries the producer-pipeline telemetry: stage-busy
+    seconds (``produce_s`` host marshalling + H2D staging,
+    ``consume_s`` reset + chunk-runner dispatch, ``drain_s`` D2H
+    copy + hit-curve scatter), the loop wall clock ``wall_s``, the
+    ring-buffer stall counters (``producer_stalls`` = producer blocked
+    on a full ring, ``consumer_stalls`` = consumer blocked on an empty
+    ring) and ``overlap`` = ``1 - wall / sum of stage-busy`` clipped to
+    [0, 1] — 0 when the stages serialize, approaching ``1 - 1/n_stages``
+    when they fully overlap. Timings and stalls are scheduling noise;
+    every other ``streaming_stats`` key is deterministic.
+    """
+
+    result: SweepResult
+    lane_width: int
+    chunk: int
+    n_slabs: int
+    async_producer: bool = True
+    pipeline: Optional[Dict[str, object]] = None
+
+    @property
+    def lane_steps(self) -> int:
+        return self.n_slabs * self.chunk * self.lane_width
+
+    def streaming_stats(self) -> Dict[str, object]:
+        """Schedule-efficiency summary, as the reference records it."""
+        total = int(np.asarray(self.result.lengths).sum())
+        steps = self.lane_steps
+        stats: Dict[str, object] = {
+            "lane_width": self.lane_width,
+            "chunk": self.chunk,
+            "n_slabs": self.n_slabs,
+            "lane_steps": int(steps),
+            "ideal_lane_steps": total,
+            "waste_ratio": round(1.0 - total / steps, 6) if steps else 0.0,
+            "async_producer": bool(self.async_producer),
+        }
+        if self.pipeline is not None:
+            stats["pipeline"] = dict(self.pipeline)
+        return stats
+
+
+def _on(dev: torch.device):
+    """The context that makes ``dev`` current in a thread."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def sweep_streaming(cfg: SimConfig,
+                    traces: Union[Mapping[str, np.ndarray],
+                                  Sequence[np.ndarray], PaddedSuite,
+                                  np.ndarray],
+                    lengths: Optional[np.ndarray] = None,
+                    arrivals: Optional[Sequence[np.ndarray]] = None,
+                    lane_width: Optional[int] = None,
+                    chunk: int = DEFAULT_CHUNK,
+                    unroll: int = DEFAULT_UNROLL,
+                    shard: Optional[bool] = None,
+                    ring_depth: int = DEFAULT_RING_DEPTH,
+                    async_producer: bool = True,
+                    device: Device = None) -> StreamResult:
+    """Online ingestion: arrival is the primitive, traces stream through
+    a recycled lane pool.
+
+    The engine keeps ``lane_width`` device lanes and a virtual step
+    clock that advances one ``chunk`` per slab. A host scheduler admits
+    queued traces (FIFO) into idle lanes at slab boundaries, places each
+    admitted trace's arrived requests into its lane's slab column
+    (arrival gaps become ``valid=False`` no-op rows), and RECYCLES a
+    lane the moment its trace drains — the next queued trace is admitted
+    mid-run after an in-place masked reset (:func:`_masked_reset`)
+    instead of the engine scanning padded tails. Slabs stage through a
+    :class:`RingBuffer` ``ring_depth`` ahead of the device and run
+    through the chunk runner (``unroll`` steps a captured graph on the
+    card). ``shard`` is accepted for the reference's signature and means
+    the one device.
+
+    ``arrivals`` gives per-trace nondecreasing request arrival steps
+    (``None`` = everything at step 0); when every trace arrives at 0 and
+    ``lane_width`` covers the batch this degrades exactly to
+    :func:`sweep`, which is implemented on top of this engine.
+    Statistics and hit curves are bit-identical to the offline engines
+    per trace: lanes are independent, invalid slots are bit-exact
+    no-ops, and the mining barrier masks per-lane ``need``.
+
+    ``async_producer=True`` (the default) runs the host scheduler on a
+    background thread: on the card it marshals slabs into a recycled pool
+    of pinned host buffers and uploads them with non-blocking copies on a
+    copy stream, whose event the consumer's stream waits on; a drain
+    thread copies each slab's hits back into pinned buffers after an
+    event of the consumer's and scatters them into the hit curve. A
+    buffer returns to the pool only after its events have completed.
+    Production order depends only on host-known cursors, so the async
+    pipeline is bit-identical to the synchronous path
+    (``async_producer=False``: fill the ring, run one slab, bring every
+    hit back at the end, with throwaway staging). Stage timings, ring
+    stall counters and the overlap ratio surface in
+    :meth:`StreamResult.streaming_stats` under ``"pipeline"``.
+    """
+    t0 = time.time()
+    if isinstance(async_producer, np.bool_):
+        async_producer = bool(async_producer)
+    if not isinstance(async_producer, bool):
+        raise ValueError(f"async_producer must be a bool, "
+                         f"got {async_producer!r}")
+    if isinstance(ring_depth, bool) or not isinstance(
+            ring_depth, (int, np.integer)) or ring_depth < 1:
+        raise ValueError(f"ring_depth must be an int >= 1, "
+                         f"got {ring_depth!r}")
+    ring_depth = int(ring_depth)
+    if not isinstance(traces, np.ndarray):
+        if lengths is not None:
+            raise ValueError("pass lengths only with a (B, T) block array"
+                             " — suites already carry per-trace lengths")
+        if not isinstance(traces, PaddedSuite):
+            traces = pad_traces(traces)
+        blocks, lengths = traces.blocks, traces.lengths
+    else:
+        blocks = np.asarray(traces, np.int32)
+    if blocks.ndim != 2:
+        raise ValueError(f"traces must stack to (B, T), got {blocks.shape}")
+    n, t_max = blocks.shape
+    lengths = _check_lengths(lengths, n, t_max)
+
+    avails: List[Optional[np.ndarray]] = [None] * n
+    if arrivals is not None:
+        if len(arrivals) != n:
+            raise ValueError(f"arrivals must give one array per trace "
+                             f"({n}), got {len(arrivals)}")
+        for i, a in enumerate(arrivals):
+            if a is None:
+                continue
+            a = np.asarray(a, np.int64)
+            if a.shape != (int(lengths[i]),):
+                raise ValueError(f"arrivals[{i}] must have shape "
+                                 f"({int(lengths[i])},), got {a.shape}")
+            if a.size and ((np.diff(a) < 0).any() or a[0] < 0):
+                raise ValueError(f"arrivals[{i}] must be nondecreasing "
+                                 "and nonnegative")
+            avails[i] = a
+
+    dev = _device(device)
+    w = min(n, DEFAULT_LANE_WIDTH) if lane_width is None \
+        else max(1, int(lane_width))
+    chunk = max(1, min(int(chunk), max(1, t_max)))
+    tenants = [_Tenant(i, blocks[i], avails[i], int(lengths[i]))
+               for i in range(n)]
+
+    runner = _runner(cfg, unroll, dev)
+    before = runner.captures
+    template = runner.init_batched(w)
+    carry = runner.carry(w)         # on the card: captured at first use
+    _assign(carry, template)
+
+    queue: collections.deque = collections.deque(range(n))
+    lanes: List[Optional[int]] = [None] * w
+    clock = 0
+    # tenant -> (index into ``snaps``, or -1 for the template; lane)
+    stash: List[Optional[Tuple[int, int]]] = [None] * n
+    snaps: List[List[torch.Tensor]] = []
+
+    # --- staging: how host slab arrays become device tensors -----------
+    # Sync keeps throwaway arrays and blocking uploads. Async marshals
+    # into a recycled pool of staging buffers: on the card pinned, each
+    # slab uploaded on the copy stream with non-blocking copies and an
+    # event the consumer waits on; on the CPU the tensors share the
+    # arrays' memory, safe because a buffer returns to the pool only
+    # after the drain, when its slab has run.
+    pinned = async_producer and dev.type == "cuda"
+    if async_producer:
+        pool: _queue_mod.Queue = _queue_mod.Queue()
+        for _ in range(ring_depth + 3):
+            pool.put(_staging(chunk, w, pinned))
+
+        def alloc() -> _Staging:
+            buf = pool.get()
+            buf.blocks.fill(0)
+            buf.valid.fill(False)
+            return buf
+    else:
+        def alloc() -> _Staging:
+            return _staging(chunk, w, False)
+
+    if pinned:
+        copy_stream = torch.cuda.Stream(dev)
+        drain_stream = torch.cuda.Stream(dev)
+
+        def stage(buf: _Staging, admit: bool):
+            with torch.cuda.stream(copy_stream):
+                tb, tv, tr, _ = buf.tensors
+                out = (tb.to(dev, non_blocking=True),
+                       tv.to(dev, non_blocking=True),
+                       tr.to(dev, non_blocking=True) if admit else None)
+                ready = torch.cuda.Event()
+                ready.record(copy_stream)
+            return out + (ready,)
+    else:
+        def stage(buf: _Staging, admit: bool):
+            tb, tv, tr, _ = buf.tensors
+            return (tb.to(dev), tv.to(dev), tr.to(dev) if admit else None,
+                    None)
+
+    timers = {"produce_s": 0.0, "consume_s": 0.0, "drain_s": 0.0}
+
+    def produce() -> Optional[_Slab]:
+        nonlocal clock
+        tp = time.perf_counter()
+        while True:
+            t_start = clock
+            reset = np.zeros((w,), bool)
+            for lane in range(w):
+                if lanes[lane] is not None:
+                    continue
+                # zero-length submissions drain at admission: init stats,
+                # no lane occupied (bit-identical to an all-masked lane)
+                while queue and tenants[queue[0]].length == 0:
+                    stash[queue.popleft()] = (-1, 0)
+                if not queue:
+                    break
+                head = tenants[queue[0]]
+                first = 0 if head.avail is None \
+                    else int(head.avail[head.cursor])
+                if first < t_start + chunk:
+                    queue.popleft()
+                    lanes[lane] = head.index
+                    reset[lane] = True
+                else:
+                    break       # FIFO: a not-yet-arrived head blocks
+            if any(la is not None for la in lanes):
+                break
+            if not queue:
+                timers["produce_s"] += time.perf_counter() - tp
+                return None     # fully drained
+            # every lane idle, nothing arrived yet: fast-forward the
+            # clock to the slab containing the head's first arrival
+            head = tenants[queue[0]]
+            clock = (int(head.avail[head.cursor]) // chunk) * chunk
+        buf = alloc()
+        slab_blocks, slab_valid = buf.blocks, buf.valid
+        placements, harvest = [], []
+        for lane, ti in enumerate(lanes):
+            if ti is None:
+                continue
+            t = tenants[ti]
+            cap = min(t.length - t.cursor, chunk)
+            if t.avail is None:
+                # offline lanes always place a gapless run from row 0:
+                # contiguous slice writes, no index vectors built
+                row0, k, pos = 0, cap, None
+            else:
+                # request k lands at slab row k + the running max of its
+                # arrival slack: in-order placement, one row per request,
+                # never before arrival — gaps stay valid=False no-ops
+                slack = (t.avail[t.cursor: t.cursor + cap] - t_start
+                         - np.arange(cap))
+                p = np.arange(cap) + np.maximum(
+                    np.maximum.accumulate(slack, axis=0)
+                    if cap else slack, 0)
+                p = p[p < chunk]
+                k = len(p)
+                if k and int(p[-1]) - int(p[0]) + 1 == k:
+                    # no interior gap: same contiguous fast path
+                    row0, pos = int(p[0]), None
+                else:
+                    row0, pos = 0, p
+            if k:
+                if pos is None:
+                    slab_blocks[row0: row0 + k, lane] = \
+                        t.blocks[t.cursor: t.cursor + k]
+                    slab_valid[row0: row0 + k, lane] = True
+                else:
+                    slab_blocks[pos, lane] = t.blocks[t.cursor: t.cursor + k]
+                    slab_valid[pos, lane] = True
+                placements.append((lane, ti, t.cursor, row0, k, pos))
+                t.cursor += k
+            if t.cursor == t.length:
+                harvest.append((ti, lane))
+                lanes[lane] = None      # recycled at the next admission
+        clock = t_start + chunk
+        admit = bool(reset.any())
+        buf.reset[:] = reset
+        dev_blocks, dev_valid, dev_reset, ready = stage(buf, admit)
+        timers["produce_s"] += time.perf_counter() - tp
+        return _Slab(dev_blocks, dev_valid, dev_reset, slab_valid.any(1),
+                     tuple(placements), tuple(harvest),
+                     buf if async_producer else None, ready)
+
+    hit_curve = np.zeros((n, t_max), bool)
+
+    def scatter_hits(h: np.ndarray, placements) -> None:
+        for lane, ti, c0, row0, k, pos in placements:
+            if pos is None:
+                hit_curve[ti, c0: c0 + k] = h[row0: row0 + k, lane]
+            else:
+                hit_curve[ti, c0: c0 + k] = h[pos, lane]
+
+    ring = RingBuffer(ring_depth)
+    n_slabs, first_slab = 0, True
+    current = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+    def consume(slab: _Slab) -> torch.Tensor:
+        """Reset admitted lanes, run the slab, copy drained lanes' stats;
+        returns the slab's hits on the device."""
+        nonlocal first_slab, n_slabs
+        tc = time.perf_counter()
+        if slab.ready is not None:
+            current.wait_event(slab.ready)
+            for t in (slab.blocks, slab.valid, slab.reset):
+                if t is not None:
+                    t.record_stream(current)
+        # slab 0 skips the reset outright: the carry IS the template
+        if slab.reset is not None and not first_slab:
+            _masked_reset(carry, template, slab.reset)
+        first_slab = False
+        hits = runner.run(carry, slab.blocks, slab.valid, slab.live)
+        if slab.harvest:
+            # the carry changes in place: copy the stats of the lanes
+            # that drained before the next slab runs
+            snaps.append([leaf.clone() for leaf in carry["stats"]])
+            for ti, lane in slab.harvest:
+                stash[ti] = (len(snaps) - 1, lane)
+        n_slabs += 1
+        timers["consume_s"] += time.perf_counter() - tc
+        return hits
+
+    t_wall = time.perf_counter()
+    if async_producer:
+        # three-stage pipeline: the producer thread marshals + stages,
+        # the calling thread runs the slabs in ring order (the order the
+        # sync loop runs them — bit-identity is by construction), a drain
+        # thread brings each slab's hit rows back and recycles its
+        # staging buffers
+        prod_err: List[BaseException] = []
+        drain_err: List[BaseException] = []
+        drain_q: _queue_mod.Queue = _queue_mod.Queue(maxsize=ring_depth + 2)
+
+        def producer_main():
+            try:
+                with _on(dev):
+                    while True:
+                        slab = produce()
+                        if slab is None:
+                            break
+                        ring.push(slab, block=True)
+            except BaseException as e:  # noqa: BLE001 — surfaced below
+                prod_err.append(e)
+            finally:
+                ring.close()
+
+        def fetch(hits: torch.Tensor, done, buf: _Staging) -> np.ndarray:
+            """The slab's hits on the host: on the card copied into the
+            pinned buffer on the drain stream, after ``done``."""
+            if done is None:
+                return hits.numpy()
+            with torch.cuda.stream(drain_stream):
+                drain_stream.wait_event(done)
+                buf.tensors[3].copy_(hits, non_blocking=True)
+                hits.record_stream(drain_stream)
+                copied = torch.cuda.Event()
+                copied.record(drain_stream)
+            copied.synchronize()
+            return buf.hits
+
+        def drain_main():
+            with _on(dev):
+                while True:
+                    item = drain_q.get()
+                    if item is None:
+                        return
+                    hits, done, slab = item
+                    td = time.perf_counter()
+                    try:
+                        if not drain_err:
+                            scatter_hits(fetch(hits, done, slab.buffers),
+                                         slab.placements)
+                    except BaseException as e:  # noqa: BLE001
+                        drain_err.append(e)     # keep draining: never
+                    finally:                    # block the consumer
+                        if done is not None:
+                            done.synchronize()
+                            slab.ready.synchronize()
+                        timers["drain_s"] += time.perf_counter() - td
+                        pool.put(slab.buffers)
+
+        producer = threading.Thread(target=producer_main, daemon=True,
+                                    name="sweep-producer")
+        drainer = threading.Thread(target=drain_main, daemon=True,
+                                   name="sweep-drain")
+        producer.start()
+        drainer.start()
+        try:
+            while True:
+                slab = ring.pop(block=True)
+                if slab is None:
+                    break
+                hits = consume(slab)
+                done = None
+                if pinned:
+                    done = torch.cuda.Event()
+                    done.record(current)
+                drain_q.put((hits, done, slab))
+        finally:
+            ring.close()        # unblocks a producer stuck mid-push
+            drain_q.put(None)
+            drainer.join()
+            producer.join()
+        if prod_err:
+            raise prod_err[0]
+        if drain_err:
+            raise drain_err[0]
+    else:
+        # synchronous path: fill the ring, run one slab, bring every hit
+        # record back at the end
+        hit_records: List[Tuple[torch.Tensor, Tuple]] = []
+        producing = True
+        while True:
+            while producing and not ring.full:
+                slab = produce()
+                if slab is None:
+                    producing = False
+                    break
+                ring.push(slab)
+            if ring.empty:
+                break
+            slab = ring.pop()
+            hit_records.append((consume(slab), slab.placements))
+
+        td = time.perf_counter()
+        for hits, placements in hit_records:
+            scatter_hits(hits.cpu().numpy(), placements)
+        timers["drain_s"] += time.perf_counter() - td
+
+    wall_s = time.perf_counter() - t_wall
+    mat: Dict[int, List[np.ndarray]] = {}
+    rows = []
+    for ti in range(n):
+        k, lane = stash[ti]
+        if k not in mat:
+            src = template["stats"] if k < 0 else snaps[k]
+            mat[k] = [leaf.cpu().numpy() for leaf in src]
+        rows.append([leaf[lane] for leaf in mat[k]])
+    stats = Stats(*(np.stack([r[j] for r in rows])
+                    for j in range(len(Stats._fields))))
+
+    busy = timers["produce_s"] + timers["consume_s"] + timers["drain_s"]
+    pipeline = {
+        "produce_s": round(timers["produce_s"], 4),
+        "consume_s": round(timers["consume_s"], 4),
+        "drain_s": round(timers["drain_s"], 4),
+        "wall_s": round(wall_s, 4),
+        "producer_stalls": int(ring.push_stalls),
+        "consumer_stalls": int(ring.pop_stalls),
+        "overlap": round(max(0.0, 1.0 - wall_s / busy), 4) if busy else 0.0,
+    }
+    result = SweepResult(stats=stats, hit_curve=hit_curve, lengths=lengths,
+                         compiles=runner.captures - before,
+                         seconds=time.time() - t0)
+    return StreamResult(result=result, lane_width=w, chunk=chunk,
+                        n_slabs=n_slabs, async_producer=async_producer,
+                        pipeline=pipeline)

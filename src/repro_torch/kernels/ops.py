@@ -43,6 +43,19 @@ def reset_launch_counts() -> None:
     paged_decode_kernel.merge_launches = 0
 
 
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    """Put the counters back to ``counts`` (a ``launch_counts()``)."""
+    for name, n in counts.items():
+        KERNELS[name].launches = n
+
+
+def add_launch_counts(counts: Dict[str, int], times: int = 1) -> None:
+    """Count ``times`` runs of a captured CUDA graph that launches
+    ``counts`` kernels of each name: a replay calls no wrapper."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n * times
+
+
 # drop-ins for ``core.mining.pairwise_codes`` ((N,S),(N,),(N,) -> (N,W)) and
 # ``pairwise_codes_batched`` ((L,N,S),(L,N),(L,N) -> (L,N,W), every lane
 # of the mining barrier in one launch)

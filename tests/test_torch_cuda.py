@@ -675,3 +675,245 @@ def test_mine_step_rejects_what_the_kernel_does_not_take(cuda):
                                               max_support=4)), st, need)
     mine_step_kernel(cfg, st, need)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the chunk runner: captured CUDA graphs of the request step
+# ---------------------------------------------------------------------------
+
+def runner_configs():
+    import dataclasses
+    from repro_torch.cache import SimConfig
+    from repro_torch.configs import PAPER_MITHRIL
+    # the paper's R, S, delta and P with tables small enough to mine
+    small_paper = dataclasses.replace(PAPER_MITHRIL, rec_buckets=1024,
+                                      mine_rows=64, pf_buckets=1024)
+    small = MithrilConfig(min_support=2, max_support=8, lookahead=100,
+                          prefetch_list=3, rec_buckets=256, rec_ways=4,
+                          mine_rows=16, pf_buckets=256, pf_ways=4,
+                          record_on="miss+evict")
+    return {
+        "mithril-lru": SimConfig(capacity=128, use_mithril=True,
+                                 mithril=small_paper),
+        "learned-mithril-amp-pg-lru": SimConfig(
+            capacity=64, use_learned=True, use_mithril=True, use_amp=True,
+            use_pg=True, mithril=small),
+    }
+
+
+RUNNER_LABELS = ["mithril-lru", "learned-mithril-amp-pg-lru"]
+
+
+def runner_blocks(lanes, steps, seed):
+    """Loops over 400 blocks (every block misses four times, so the
+    paper's R = 4 fills a mining table) beside mixed traces."""
+    from repro_torch.traces import mixed
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(lanes):
+        if i % 2:
+            rows.append(mixed(steps, seed=seed * 10 + i))
+        else:
+            loop = rng.permutation(400).astype(np.int32) + 1000 * i
+            rows.append(np.tile(loop, -(-steps // 400))[:steps])
+    return np.stack(rows).astype(np.int32)
+
+
+def sweep_module():
+    import importlib
+    return importlib.import_module("repro_torch.cache.sweep")
+
+
+def clear_constant_caches():
+    """Drop the step's cached device constants, so that the next runner
+    meets them uncached (its warm-up step builds them before capture)."""
+    from repro_torch.cache import base
+    from repro_torch.core import hashindex
+    for fn in (base._const, base._table_mask, hashindex.arange, ops._ones,
+               ops.all_lanes):
+        fn.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", RUNNER_LABELS)
+def test_runner_replays_equal_the_eager_steps(cuda, label):
+    """Every carry leaf and hit row of a sweep through the runner (G =
+    16, 500-row slabs, so a short group is padded) equals the eager loop
+    over the public step; ragged lengths and an empty lane."""
+    from repro_torch.cache import build_batched_step, chunk_runner, sweep
+    sw = sweep_module()
+    cfg = runner_configs()[label]
+    steps = 1600
+    blocks = runner_blocks(5, steps, seed=3)
+    lengths = np.array([steps, steps, 1200, 777, 0])
+    init, step = build_batched_step(cfg, cuda)
+    carry = init(5)
+    xs = torch.as_tensor(np.ascontiguousarray(blocks.T), device=cuda)
+    valid = torch.as_tensor(np.arange(steps)[:, None] < lengths[None],
+                            device=cuda)
+    hits = torch.stack([step(carry, xs[t], valid[t])[1]
+                        for t in range(steps)])
+    sw.reset_runners()
+    clear_constant_caches()     # the warm-up must build them, not the capture
+    res = sweep(cfg, blocks, lengths, chunk=500, unroll=16, device=cuda)
+    assert res.compiles == 1
+    got = chunk_runner(cfg, 16, cuda).carry(5)
+    for a, b in zip(sw._leaves(got), sw._leaves(carry)):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(res.hit_curve, hits.cpu().numpy().T)
+    assert int(carry["mith"].n_mines.sum()) > 0
+    np.testing.assert_array_equal(res.stats.requests, lengths)
+
+
+@pytest.mark.cuda
+def test_sweeps_capture_once_per_geometry(cuda):
+    from repro_torch.cache import (compile_count, sweep, sweep_scheduled,
+                                   sweep_streaming)
+    sw = sweep_module()
+    sw.reset_runners()
+    cfg = runner_configs()["mithril-lru"]
+    blocks = runner_blocks(3, 300, seed=5)
+    a = sweep(cfg, blocks, chunk=64, device=cuda)
+    b = sweep(cfg, blocks, chunk=64, device=cuda)
+    assert (a.compiles, b.compiles) == (1, 0)
+    np.testing.assert_array_equal(a.hit_curve, b.hit_curve)
+    for x, y in zip(a.stats, b.stats):
+        np.testing.assert_array_equal(x, y)
+    assert sweep(cfg, blocks[:2], chunk=64, device=cuda).compiles == 1
+    # groups of 2, 2 and 1 lanes: the width 1 is new
+    five = {f"t{i}": blocks[i % 3, : 100 + 40 * i] for i in range(5)}
+    s = sweep_scheduled(cfg, five, lane_width=2, device=cuda)
+    assert s.compiles == 1
+    assert sweep_streaming(cfg, five, lane_width=2, chunk=64,
+                           device=cuda).result.compiles == 0
+    assert compile_count(cfg, device=cuda) == 3
+
+
+@pytest.mark.cuda
+def test_recycled_lanes_equal_fresh_lanes(cuda):
+    """Through two lanes, traces are admitted after in-place masked
+    resets between replays; each equals its run in a lane of its own."""
+    from repro_torch.cache import (chunk_runner, sweep_scheduled,
+                                   sweep_streaming)
+    from repro_torch.traces import arrival_process
+    sw = sweep_module()
+    cfg = runner_configs()["learned-mithril-amp-pg-lru"]
+    blocks = runner_blocks(6, 700, seed=7)
+    traces = {f"t{i}": blocks[i, : 700 - 90 * i] for i in range(6)}
+    arr = arrival_process(traces, mode="onoff", burst_len=40, idle_len=30,
+                          stagger=100, seed=1)
+    stream = sweep_streaming(cfg, traces, arrivals=[arr[k] for k in traces],
+                             lane_width=2, chunk=128, device=cuda)
+    alone = sweep_scheduled(cfg, traces, lane_width=1, device=cuda)
+    for x, y in zip(stream.result.stats, alone.stats):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(stream.result.hit_curve, alone.hit_curve)
+    # the reset itself: in place, the masked lane becomes the template
+    runner = chunk_runner(cfg, device=cuda)
+    carry = runner.carry(2)
+    ptrs = [x.data_ptr() for x in sw._leaves(carry)]
+    before = [x.clone() for x in sw._leaves(carry)]
+    template = runner.init_batched(2)
+    sw._masked_reset(carry, template,
+                     torch.tensor([True, False], device=cuda))
+    for x, old, t, p in zip(sw._leaves(carry), before,
+                            sw._leaves(template), ptrs):
+        assert x.data_ptr() == p
+        assert torch.equal(x[0], t[0]) and torch.equal(x[1], old[1])
+
+
+@pytest.mark.cuda
+def test_async_equals_sync_on_the_card(cuda):
+    from repro_torch.cache import sweep_streaming
+    from repro_torch.traces import arrival_process
+    cfg = runner_configs()["learned-mithril-amp-pg-lru"]
+    blocks = runner_blocks(5, 900, seed=11)
+    traces = {f"t{i}": blocks[i, : 900 - 150 * i] for i in range(5)}
+    arr = arrival_process(traces, mode="poisson", rate=0.8, stagger=200,
+                          seed=4)
+    kw = dict(arrivals=[arr[k] for k in traces], lane_width=3, chunk=96,
+              ring_depth=2, device=cuda)
+    a = sweep_streaming(cfg, traces, async_producer=True, **kw)
+    s = sweep_streaming(cfg, traces, async_producer=False, **kw)
+    for x, y in zip(a.result.stats, s.result.stats):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(a.result.hit_curve, s.result.hit_curve)
+    assert a.n_slabs == s.n_slabs
+    assert a.streaming_stats()["pipeline"]["wall_s"] > 0
+
+
+@pytest.mark.cuda
+def test_launch_counters_count_the_replays(cuda):
+    """The counters hold the warm-up step's launches plus the graph's
+    launches times its replays, and nothing the capture counted."""
+    from repro_torch.cache import chunk_runner, sweep
+    sw = sweep_module()
+    sw.reset_runners()
+    cfg = runner_configs()["mithril-lru"]
+    blocks = runner_blocks(4, 900, seed=2)
+    ops.reset_launch_counts()
+    sweep(cfg, blocks, np.array([900, 850, 400, 30]), chunk=100, unroll=8,
+          device=cuda)
+    runner = chunk_runner(cfg, 8, cuda)
+    graph = runner.graphs[4]
+    # rec_on = "miss": one record launch and one mining run a step
+    assert graph.launches == {"mithril_record": 8, "mithril_mine_step": 8}
+    assert runner.replays == 9 * 13      # 9 slabs of 13 groups
+    counts = ops.launch_counts()
+    for name, n in counts.items():
+        want = graph.launches.get(name, 0)
+        assert n == want * runner.replays + want // 8, name
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(cuda):
+    """A step that reads the host cannot be captured: the runner raises
+    and captures nothing (no eager fallback), and the card still works."""
+    from repro_torch.cache import sweep
+    sw = sweep_module()
+    cfg = runner_configs()["mithril-lru"]
+    runner = sw.ChunkRunner(cfg, 4, cuda)
+    step = runner.step
+
+    def host_read(carry, block, valid):
+        out = step(carry, block, valid)
+        int(out[1].sum())
+        return out
+
+    runner.step = host_read
+    with pytest.raises(RuntimeError):
+        runner.carry(2)
+    assert runner.captures == 0
+    torch.cuda.synchronize()
+    res = sweep(cfg, runner_blocks(2, 50, seed=1), chunk=16, device=cuda)
+    assert res.stats.requests.tolist() == [50, 50]
+
+
+@pytest.mark.cuda
+def test_first_capture_at_the_paper_mining_shape(cuda, tmp_path):
+    """In a fresh process, the first mining launch at the paper's tables
+    (N = 1024: above 48 KiB of shared memory, so the launch raises the
+    kernel's limit first) comes in the runner's warm-up, and the capture
+    after it holds; the sweep equals the CPU's."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    code = (
+        "import json, numpy as np\n"
+        "from repro_torch.cache import SimConfig, sweep\n"
+        "from repro_torch.configs import PAPER_MITHRIL\n"
+        "cfg = SimConfig(capacity=1024, use_mithril=True, "
+        "mithril=PAPER_MITHRIL)\n"
+        "b = (np.arange(2 * 300).reshape(2, 300) % 97).astype(np.int32)\n"
+        "gpu = sweep(cfg, b, chunk=100, device='cuda')\n"
+        "cpu = sweep(cfg, b, chunk=100, device='cpu')\n"
+        "print(json.dumps([gpu.compiles, all(np.array_equal(x, y) for "
+        "x, y in zip(gpu.stats, cpu.stats)), bool(np.array_equal("
+        "gpu.hit_curve, cpu.hit_curve))]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[1, true, true]"
