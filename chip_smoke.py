@@ -65,7 +65,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
    configuration and corpus through 64 recycled lanes under the job's
    on-off arrivals with the async producer, each trace's ``Stats`` equal
    to the offline real-size sweep's; the ``pipeline`` telemetry of each;
-6. serving — the tiered paged-KV cache under multi-tenant on-off
+6. learned — the online MITHRIL search (``learn.adapt``) and the policy
+   heads' training (``learn.train``): (a) ``benchmarks/adaptive_bench.py``'s
+   hill-climb then bandit (8 episodes, seed 0, top 4) over the quick
+   corpus, base ``mithril-lru`` at capacity 512 over its 12-arm grid,
+   from fresh runners (``reset_runners``), every deterministic field
+   (arms, labels, hit ratios, means, decision CRC, graphs captured)
+   equal to the ``learned`` rows of ``BENCH_baseline_quick.json``; both
+   again, which must capture nothing and give the same bits; (b) the
+   135-trace corpus at 4,000 requests a trace (the bench's 50,000 cut by
+   the script's time limit) exported with ``traces.io.write_corpus_dir``
+   and loaded back through ``RealCorpus`` (fingerprint and padded matrix
+   equal to the synthetic suite's), both searchers at 135 lanes: the 16
+   quick traces' hill-climb arms and hit ratios equal to (a)'s, every
+   committed hit ratio at least its static one, every arm on the grid,
+   the bandit's decisions equal on a repeat, and each committed arm's
+   hit ratios equal to a plain ``sweep`` of its config over the lanes
+   that committed it; seconds, captures and peak device memory; (c)
+   ``learn.train.train_heads`` (both heads, 400 steps on the quick
+   corpus) on the card and on the CPU from one generator seed:
+   parameters equal bit for bit, losses within 1e-6, Q8 weights equal;
+7. serving — the tiered paged-KV cache under multi-tenant on-off
    arrivals through ``launch.serve.TieredServeEngine``, with and without
    MITHRIL: (a) at ``benchmarks/serving_bench.py``'s quick scale, where
    every deterministic field must equal the ``serving`` rows of
@@ -79,16 +99,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    kernel once per demand fetch and the mining run (and the lookup after
    it) once per mining run, and the line gives the host time of a mining
    run and of a miss outside mining;
-7. profile — 300 replayed steps of the real-size sweep under
+8. profile — 300 replayed steps of the real-size sweep under
    ``torch.profiler``: device idle share, kernels a step, and the launch
    counters against the profiler's count of the record kernel and the
    mining run.
 
 A captured graph calls no Python at replay, so the runner counts each
 graph's launches at its capture and adds them at every replay: the
-counters stay the launches the card ran. The main path is phases 3-6:
+counters stay the launches the card ran. The main path is phases 3-7:
 the launch counters are zeroed just before the parity sweeps and read
-after each of the later phases' main runs; the
+after each of the later phases' main runs (the learned phase's searches
+launch the record kernel and the mining run); the
 record, lookup and decode kernels, the serving tier's miss launch, the
 fused mining run and the decode's merge must have launched on one of
 them, and the two codes launches on none: the main path mines only
@@ -1842,7 +1863,305 @@ def phase_streaming(dev, real) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: serving over the tiered paged-KV cache
+# phase 6: the learned & adaptive lane
+# ---------------------------------------------------------------------------
+
+# copies of benchmarks/adaptive_bench.py's GRID (its axes), BASE, EPISODES,
+# SEED, TOP_K and _crc (a CPU test holds them equal)
+ADAPT_GRID = dict(lookaheads=(25, 100, 400), min_supports=(2, 4),
+                  pf_sizes=(1, 2))
+ADAPT_BASE = "mithril-lru"
+EPISODES = 8
+SEED = 0
+TOP_K = 4
+# the adaptive bench's quick length, and the depth of the full-width run
+# (of its 50,000 requests: the script's 1,200 s limit cuts it)
+LEARNED_LEN = 4_000
+ADAPT_KEYS = ("episodes", "arms", "labels", "hit_ratios", "base_hit_ratios",
+              "hit_ratio_mean", "base_hit_ratio_mean", "decisions_crc",
+              "compiles")
+TRAIN = dict(scale="quick", trace_len=4000, steps=400, seed=0, stride=4)
+# the card's training against the CPU's from the same start: the head's
+# fixed-order arithmetic (models/policy_head.py) gives both the same
+# parameters; a loss value may differ in its last bit (the library's
+# log1p), which feeds no gradient
+TRAIN_TOL = {"params": 0.0, "loss": 1e-6}
+
+
+def _crc(history) -> str:
+    """CRC32 of the full decision history — one reproducibility token
+    per run, cheap to gate exactly in BENCH json."""
+    return f"{zlib.crc32(repr(history).encode()):08x}"
+
+
+def adapt_row(r) -> dict:
+    """An AdaptResult as the adaptive bench records it (ADAPT_KEYS)."""
+    import numpy as np
+    return {"episodes": int(r.episodes), "arms": [int(a) for a in r.arms],
+            "labels": list(r.labels),
+            "hit_ratios": [round(float(h), 6) for h in r.hit_ratios],
+            "base_hit_ratios": [round(float(h), 6)
+                                for h in r.base_hit_ratios],
+            "hit_ratio_mean": round(float(np.mean(r.hit_ratios)), 6),
+            "base_hit_ratio_mean": round(
+                float(np.mean(r.base_hit_ratios)), 6),
+            "decisions_crc": _crc(r.history), "compiles": int(r.compiles)}
+
+
+def run_searches(base_cfg, blocks, lengths, dev) -> dict:
+    """The adaptive bench's two searchers, hill-climb then bandit, in
+    this process: {name: (AdaptResult, seconds)}."""
+    from repro_torch.learn.adapt import SearchGrid, bandit, hill_climb
+    grid = SearchGrid(**ADAPT_GRID)
+    out = {}
+    for name in ("hill-climb", "bandit"):
+        t0 = time.time()
+        if name == "hill-climb":
+            r = hill_climb(base_cfg, blocks, lengths, grid, device=dev)
+        else:
+            r = bandit(base_cfg, blocks, lengths, grid, episodes=EPISODES,
+                       seed=SEED, top_k=TOP_K, device=dev)
+        out[name] = (r, time.time() - t0)
+    return out
+
+
+def same_result(a, b) -> bool:
+    """Two AdaptResults with the same decisions and the same bits."""
+    import numpy as np
+    return (a.arms == b.arms and a.history == b.history
+            and np.array_equal(a.hit_ratios, b.hit_ratios)
+            and np.array_equal(a.base_hit_ratios, b.base_hit_ratios))
+
+
+def runner_capture_seconds(base_cfg, dev) -> float:
+    """Capture seconds of the runners of the base config and every arm
+    (a set: the base may equal an arm, whose runner it then shares)."""
+    from repro_torch.cache import chunk_runner
+    from repro_torch.learn.adapt import SearchGrid
+    grid = SearchGrid(**ADAPT_GRID)
+    cfgs = {base_cfg} | {grid.config(base_cfg, a) for a in range(grid.n_arms)}
+    return sum(chunk_runner(c, device=dev).capture_seconds for c in cfgs)
+
+
+def learned_quick(dev) -> dict:
+    """(a) both searchers over the quick corpus from fresh runners, each
+    row's deterministic fields equal to the adaptive_quick rows, then
+    both again: no capture, the same bits."""
+    import numpy as np
+    from repro_torch.cache import reset_runners
+    from repro_torch.traces import corpus_suite
+    rows = {r["config"]: r for r in json.loads(BASELINE.read_text())[
+        "learned"] if r["job"] == "adaptive_quick"}
+    names, blocks, lengths = corpus_suite("quick", LEARNED_LEN)
+    crc = zlib.crc32(np.ascontiguousarray(blocks).tobytes())
+    base = parity_grid(PARITY_CAPACITY)[ADAPT_BASE]
+    reset_runners()
+    first = run_searches(base, blocks, lengths, dev)
+    capture_s = runner_capture_seconds(base, dev)
+    again = run_searches(base, blocks, lengths, dev)
+    out = {}
+    for name, (r, seconds) in first.items():
+        got, want = adapt_row(r), rows[name]
+        r2, seconds2 = again[name]
+        out[name] = {
+            "equal": all(got[k] == want[k] for k in ADAPT_KEYS),
+            "differs_in": [k for k in ADAPT_KEYS if got[k] != want[k]],
+            "seconds": seconds, "repeat_seconds": seconds2,
+            "reference_cpu_seconds": want["seconds"],
+            "compiles": r.compiles, "repeat_compiles": r2.compiles,
+            "repeat_equal": r2.compiles == 0 and same_result(r, r2),
+            "sweeps": r.sweeps, "decisions_crc": got["decisions_crc"],
+            "hit_ratio_mean": got["hit_ratio_mean"],
+            "base_hit_ratio_mean": got["base_hit_ratio_mean"]}
+    return {"traces": len(names), "requests": int(lengths.sum()),
+            "corpus_crc32": crc, "capture_seconds": capture_s,
+            "rows": out, "results": {k: v[0] for k, v in first.items()},
+            "names": list(names)}
+
+
+def learned_full(dev, quick: dict) -> dict:
+    """(b) the 135-trace corpus at LEARNED_LEN exported with
+    write_corpus_dir and loaded back through RealCorpus, then both
+    searchers at 135 lanes and the bandit again."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.cache import sweep
+    from repro_torch.learn.adapt import DEFAULT_CHUNK, SearchGrid, bandit
+    from repro_torch.traces import (RealCorpus, corpus_fingerprint,
+                                    corpus_suite, family_of,
+                                    write_corpus_dir)
+    names, blocks, lengths = corpus_suite("full", LEARNED_LEN)
+    traces = {n: blocks[i, : lengths[i]] for i, n in enumerate(names)}
+    with tempfile.TemporaryDirectory() as d:
+        write_corpus_dir(d, traces, {n: family_of(n) for n in names})
+        rc = RealCorpus(d)
+        fingerprint = rc.fingerprint("full")
+        r_names, r_blocks, r_lengths = rc.suite("full")
+    ingest_equal = (tuple(r_names) == tuple(names)
+                    and fingerprint == corpus_fingerprint(traces)
+                    and np.array_equal(r_blocks, blocks)
+                    and np.array_equal(r_lengths, lengths))
+    base = parity_grid(PARITY_CAPACITY)[ADAPT_BASE]
+    grid = SearchGrid(**ADAPT_GRID)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # what earlier phases still hold
+    cap0 = runner_capture_seconds(base, dev)
+    res = run_searches(base, r_blocks, r_lengths, dev)
+    t0 = time.time()
+    again = bandit(base, r_blocks, r_lengths, grid, episodes=EPISODES,
+                   seed=SEED, top_k=TOP_K, device=dev)
+    again_s = time.time() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    capture_s = runner_capture_seconds(base, dev) - cap0
+    # the 16 quick traces: hill-climb decides each trace from its own
+    # lane, so their arms and hit ratios are row (a)'s
+    hill = res["hill-climb"][0]
+    qhill = quick["results"]["hill-climb"]
+    idx = [list(r_names).index(n) for n in quick["names"]]
+    quick_equal = ([hill.arms[i] for i in idx] == list(qhill.arms)
+                   and np.array_equal(hill.hit_ratios[idx],
+                                      qhill.hit_ratios)
+                   and np.array_equal(hill.base_hit_ratios[idx],
+                                      qhill.base_hit_ratios))
+    # each committed arm's hit ratios against a plain sweep of that arm's
+    # config over the lanes that committed it
+    t1 = time.time()
+    by_arm = {}
+    for name, (r, _) in res.items():
+        for t, a in enumerate(r.arms):
+            if a >= 0:
+                by_arm.setdefault(a, []).append((name, t))
+    arms_equal = True
+    for a, where in sorted(by_arm.items()):
+        lanes = sorted({t for _, t in where})
+        ref = sweep(grid.config(base, a), r_blocks[lanes],
+                    lengths=r_lengths[lanes], chunk=DEFAULT_CHUNK,
+                    device=dev).hit_ratios()
+        hr = dict(zip(lanes, ref.tolist()))
+        arms_equal &= all(float(res[n][0].hit_ratios[t]) == hr[t]
+                          for n, t in where)
+    check_s = time.time() - t1
+    out = {}
+    for name, (r, seconds) in res.items():
+        out[name] = {
+            "seconds": seconds, "compiles": r.compiles, "sweeps": r.sweeps,
+            "episodes": r.episodes,
+            "committed": sum(a >= 0 for a in r.arms),
+            "distinct_arms": len({a for a in r.arms if a >= 0}),
+            "hit_ratio_mean": float(np.mean(r.hit_ratios)),
+            "base_hit_ratio_mean": float(np.mean(r.base_hit_ratios)),
+            "decisions_crc": _crc(r.history),
+            "geq_static": bool(np.all(r.hit_ratios >= r.base_hit_ratios)),
+            "on_grid": all(a == -1 or 0 <= a < grid.n_arms
+                           for a in r.arms)}
+    out["bandit"].update(repeat_seconds=again_s,
+                         repeat_compiles=again.compiles,
+                         repeat_crc=_crc(again.history),
+                         repeat_equal=same_result(res["bandit"][0], again))
+    return {"traces": len(names), "requests": int(lengths.sum()),
+            "requests_min": int(lengths.min()),
+            "requests_max": int(lengths.max()),
+            "depth_cut": f"{LEARNED_LEN} of the adaptive bench's 50000 "
+                         f"requests a trace (the script's time limit)",
+            "fingerprint": fingerprint, "ingest_equal": ingest_equal,
+            "quick_traces_equal_row_a": quick_equal,
+            "committed_arms_equal_plain_sweep": arms_equal,
+            "arm_check_sweeps": len(by_arm), "arm_check_seconds": check_s,
+            "capture_seconds": capture_s, "max_memory_allocated": int(peak),
+            "memory_allocated_before": int(held),
+            "rows": out}
+
+
+def learned_training(dev) -> dict:
+    """(c) the policy heads trained on the card and on the CPU from the
+    same generator seed: parameters, losses and Q8 weights compared."""
+    import numpy as np
+    from repro_torch.learn.policy import quantize
+    from repro_torch.learn.train import train_heads
+    runs, seconds = {}, {}
+    for where, d in (("card", dev), ("cpu", "cpu")):
+        t0 = time.time()
+        runs[where] = train_heads(**TRAIN, device=d)
+        seconds[where] = time.time() - t0
+
+    def q8(w):
+        flat = []
+        for v in w:
+            flat.extend(np.ravel(np.asarray(v, np.float64)).tolist())
+        return [quantize(v) for v in flat]
+
+    out = {}
+    for kind in ("logreg", "mlp"):
+        card, cpu = runs["card"][kind], runs["cpu"][kind]
+        out[kind] = {
+            "samples": card.samples,
+            "loss_first": [card.losses[0], cpu.losses[0]],
+            "loss_last": [card.losses[-1], cpu.losses[-1]],
+            "loss_max_abs_diff": float(np.max(np.abs(
+                np.asarray(card.losses) - np.asarray(cpu.losses)))),
+            "params_max_abs_diff": max(
+                float((card.params[k] - cpu.params[k]).abs().max())
+                for k in card.params),
+            "q8_equal": q8(card.config.weights) == q8(cpu.config.weights)}
+    return {"kinds": out, "card_seconds": seconds["card"],
+            "cpu_seconds": seconds["cpu"], "tolerance": TRAIN_TOL,
+            "steps": TRAIN["steps"]}
+
+
+def phase_learned(dev) -> dict:
+    """(a) the adaptive_quick rows, (b) the full-width search through
+    RealCorpus, (c) training on the card against the CPU. Returns the
+    launch counts of (a) and (b)."""
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()
+    t0 = time.time()
+    quick = learned_quick(dev)
+    full = learned_full(dev, quick)
+    counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    training = learned_training(dev)
+    info = {"phase": "learned",
+            "quick": {k: v for k, v in quick.items()
+                      if k not in ("results", "names")},
+            "full": full, "training": training, "launches": counts,
+            "seconds": time.time() - t0}
+    emit(info)
+    if quick["corpus_crc32"] != QUICK_CORPUS_CRC32:
+        fail("learned: the quick corpus is not the baseline's")
+    bad = [k for k, v in quick["rows"].items()
+           if not (v["equal"] and v["repeat_equal"])]
+    if bad:
+        fail(f"learned: {bad} differ from the adaptive_quick rows, or a "
+             f"repeat captured again or differed")
+    checks = {"ingest_equal": full["ingest_equal"],
+              "quick_traces_equal_row_a": full["quick_traces_equal_row_a"],
+              "committed_arms_equal_plain_sweep":
+                  full["committed_arms_equal_plain_sweep"],
+              "bandit_repeat_equal": full["rows"]["bandit"]["repeat_equal"],
+              "geq_static": all(full["rows"][n]["geq_static"]
+                                for n in ("hill-climb", "bandit")),
+              "on_grid": all(full["rows"][n]["on_grid"]
+                             for n in ("hill-climb", "bandit"))}
+    if not all(checks.values()):
+        fail(f"learned: full-width checks failed: "
+             f"{[k for k, v in checks.items() if not v]}")
+    for kind, v in training["kinds"].items():
+        if not (v["q8_equal"]
+                and v["params_max_abs_diff"] <= TRAIN_TOL["params"]
+                and v["loss_max_abs_diff"] <= TRAIN_TOL["loss"]):
+            fail(f"learned: {kind} trained on the card differs from the "
+                 f"CPU beyond {TRAIN_TOL}: {v}")
+    if counts["mithril_record"] == 0 or counts["mithril_mine_step"] == 0 \
+            or any(counts[k] for k in OFF_PATH):
+        fail(f"learned: the searches did not record and mine through the "
+             f"record kernel and the mining run alone: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 7: serving over the tiered paged-KV cache
 # ---------------------------------------------------------------------------
 
 # copies of benchmarks/serving_bench.py's PAGE, SCALES and MCFG (this
@@ -2258,6 +2577,7 @@ def run(children: dict, t_start: float) -> int:
     by_path = {"parity": phase_parity()}
     by_path["real_size"], real = phase_real(dev, children["real_size"])
     by_path["streaming"] = phase_streaming(dev, real)
+    by_path["learned"] = phase_learned(dev)
     by_path["serving"] = phase_serving(dev, children["serving"])
     counts = {k: sum(c[k] for c in by_path.values()) for k in KERNEL_INFO}
     merges = by_path["serving"]["paged_decode_merge"]    # only serving

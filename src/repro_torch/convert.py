@@ -16,7 +16,10 @@ A state produced by the JAX reference (as numpy arrays, or anything
   the same name;
 * :func:`tier_from` carries a reference ``TieredKVCache`` across into
   the port's, mid-stream: pools, slots and their metadata, clock,
-  counters and MITHRIL state.
+  counters and MITHRIL state;
+* :func:`policy_head_from` carries a reference policy head's parameters
+  (``w``, ``b`` / ``w1``, ``b1``, ``w2``, ``b2``, as numpy) across as
+  the port's float32 tensors, so that both train from the same start.
 
 The port's functions take a leading lanes axis; the reference's sweep
 carry has one, a single reference state gets one with ``lanes=True``.
@@ -128,3 +131,21 @@ def tier_from(ref: Any, device: Union[None, str, torch.device] = None
                                                        lanes=True)):
             mine.copy_(theirs)
     return tier
+
+
+def policy_head_from(ref_params: Any,
+                     device: Union[None, str, torch.device] = None
+                     ) -> dict:
+    """A reference head's ``{name: array}`` parameters as the port's
+    ``{name: float32 tensor}`` on ``device`` (None: the card), for
+    ``models.policy_head`` and ``learn.train.train_head(init=...)``."""
+    from .kernels.backend import resolve_device
+    dev = resolve_device(device)
+    out = {}
+    for name, value in ref_params.items():
+        arr = np.asarray(value)
+        if arr.dtype != np.float32:
+            raise TypeError(f"head parameter {name!r} is {arr.dtype}, not "
+                            "float32")
+        out[name] = torch.tensor(arr, dtype=torch.float32, device=dev)
+    return out

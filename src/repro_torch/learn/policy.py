@@ -165,3 +165,26 @@ def make_scorer(cfg: LearnedConfig):
     def scorer(recency, freq, assoc, pf_flag):
         return score_rows(cfg, recency, freq, assoc, pf_flag)
     return scorer
+
+
+def params_to_weights(kind: str, params) -> Tuple:
+    """Trained head parameters (``models/policy_head.py``: a dict of
+    tensors or arrays) -> the config tuples, laid out as the
+    reference's."""
+    import numpy as np
+
+    def f32(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        return np.asarray(x, np.float32)
+
+    if kind == "logreg":
+        w, b = f32(params["w"]), f32(params["b"])
+        return tuple(float(v) for v in w) + (float(b),)
+    w1, b1 = f32(params["w1"]), f32(params["b1"])
+    w2, b2 = f32(params["w2"]), f32(params["b2"])
+    return (tuple(tuple(float(v) for v in w1[:, j])
+                  for j in range(w1.shape[1])),
+            tuple(float(v) for v in b1),
+            tuple(float(v) for v in w2),
+            float(b2))

@@ -20,8 +20,9 @@ of the nominal length) so the sweep scheduler's length bucketing
     names, blocks, lengths = corpus_suite("quick")           # padded batch
 
 A copy of the reference's registry (``repro/traces/corpus.py``): the
-same specs, seeds and generators give the same traces array for array.
-Ingested real corpora (``RealCorpus``) are not ported yet.
+same specs, seeds and generators give the same traces array for array,
+and ingested real corpora (:class:`RealCorpus`, a directory that
+``traces/io.py`` writes) stand in for it under the same contract.
 
 Scales: ``quick`` (16) ⊂ ``mid`` (64) ⊂ ``full`` (135), sampled evenly
 across the registry so every family is represented at every scale.
@@ -30,11 +31,13 @@ across the registry so every family is represented at every scale.
 from __future__ import annotations
 
 import dataclasses
+import os
 import zlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from . import io as trace_io
 from .synthetic import (association_groups, interleaved_sequential, looping,
                         mixed, stack_padded, zipf)
 
@@ -203,3 +206,91 @@ def corpus_suite(scale: str = "quick", n_requests: int = 50_000):
     ``cache.sweep.sweep_scheduled``.
     """
     return stack_padded(build_corpus(corpus_specs(n_requests, scale)))
+
+
+# ---------------------------------------------------------------------------
+# Real-corpus drop-in: ingested directories behind the registry contract
+# ---------------------------------------------------------------------------
+
+class RealCorpus:
+    """An ingested corpus directory satisfying the registry contract.
+
+    A corpus directory holds canonical npz volumes plus a
+    ``manifest.json`` (``traces/io.py``: ``ingest_to_dir`` writes one,
+    ``scan_corpus_dir`` discovers/validates one; a bare directory of
+    npz files also works). ``suite(scale, n_requests)`` returns the
+    same ``(names, blocks, lengths)`` zero-padded batch as
+    :func:`corpus_suite`, so everything downstream of the registry —
+    ``plan_sweep``, ``sweep_scheduled``, the figure engine — runs
+    unchanged the moment a volume directory is present.
+
+    Contract deltas vs the synthetic registry, both deliberate:
+
+    * **scales subset, they don't generate** — ``quick``/``mid`` take
+      the registry's nested even-sample (:func:`_even_sample`, capped
+      at the volume count) of the manifest order, so per-trace
+      trajectories stay comparable across scales exactly like
+      synthetic specs;
+    * **``n_requests`` is a length CAP, not a nominal length** — real
+      traces carry their own lengths; the cap keeps quick-suite runs
+      affordable on corpus-scale volumes and is a no-op when traces
+      are shorter.
+
+    Families come from the manifest (``family_of`` with the
+    :data:`INGESTED` fallback classifies unlabeled volumes), and
+    ``fingerprint()`` hashes the *sampled, capped* suite content so
+    BENCH telemetry keys distinguish every distinct corpus geometry.
+    """
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        self._traces, self._families = trace_io.load_corpus_dir(directory)
+        self.names: Tuple[str, ...] = tuple(self._traces)
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def family(self, name: str) -> str:
+        """Manifest family of a volume, :data:`INGESTED` when absent."""
+        return self._families.get(name, INGESTED)
+
+    def subset_names(self, scale: str = "full") -> Tuple[str, ...]:
+        """The nested even-sample of volume names at a registry scale."""
+        if scale not in SCALES:
+            raise ValueError(
+                f"unknown scale {scale!r}; expected {set(SCALES)}")
+        names = list(self.names)
+        if scale != "full":
+            names = _even_sample(names, SCALES["mid"])
+            if scale == "quick":
+                names = _even_sample(names, SCALES["quick"])
+        return tuple(names)
+
+    def subset(self, scale: str = "full",
+               n_requests: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """The sampled, length-capped traces as a name->blocks dict
+        (manifest order) — the raw-dict form for stream consumers."""
+        cap = int(n_requests) if n_requests else None
+        return {k: (self._traces[k][:cap] if cap else self._traces[k])
+                for k in self.subset_names(scale)}
+
+    def suite(self, scale: str = "full",
+              n_requests: Optional[int] = None):
+        """``(names, blocks, lengths)`` — the :func:`corpus_suite` form."""
+        return stack_padded(self.subset(scale, n_requests))
+
+    def fingerprint(self, scale: str = "full",
+                    n_requests: Optional[int] = None) -> str:
+        """Content hash of the sampled/capped suite (BENCH job key)."""
+        return trace_io.corpus_fingerprint(self.subset(scale, n_requests))
+
+
+def resolve_corpus_dir(corpus_dir: Optional[str] = None) -> Optional[str]:
+    """The active ingested-corpus directory, or None for synthetic.
+
+    Resolution order: the explicit ``--corpus-dir`` argument, then the
+    ``REPRO_CORPUS_DIR`` environment variable — one switch flips every
+    figure script, ``corpus_sweep``, ``adaptive_bench`` and the
+    streaming pipeline job onto real traces.
+    """
+    return corpus_dir or os.environ.get("REPRO_CORPUS_DIR") or None

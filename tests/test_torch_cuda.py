@@ -917,3 +917,95 @@ def test_first_capture_at_the_paper_mining_shape(cuda, tmp_path):
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().splitlines()[-1] == "[1, true, true]"
+
+
+# ---------------------------------------------------------------------------
+# the learned & adaptive lane: the online search and the heads' training
+# ---------------------------------------------------------------------------
+
+# tests/test_torch_adapt.py's tiny corpus, small-table base and 12-arm grid
+ADAPT_AXES = dict(lookaheads=(10, 40, 160), min_supports=(2, 3),
+                  pf_sizes=(1, 2))
+
+
+def adapt_corpus():
+    rng = np.random.default_rng(7)
+    blocks = rng.integers(0, 150, size=(4, 512)).astype(np.int32)
+    blocks[1, 1::3] = blocks[1, 0::3] + 1
+    return blocks, np.array([512, 512, 400, 301])
+
+
+def adapt_base():
+    from repro_torch.cache import SimConfig
+    return SimConfig(capacity=64, use_mithril=True, mithril=MithrilConfig(
+        min_support=2, max_support=8, lookahead=40, rec_buckets=512,
+        rec_ways=4, mine_rows=16, pf_buckets=512, pf_ways=4,
+        prefetch_list=2))
+
+
+@pytest.mark.cuda
+def test_searches_on_the_card_equal_the_cpu(cuda):
+    """hill_climb then bandit on the card from fresh runners: the same
+    decisions, hit ratios and base Stats as the CPU; each run's
+    ``compiles`` is the graphs its new configs captured (one each, the
+    sweeps share one lane width), and a repeat captures none."""
+    from repro_torch.cache import chunk_runner, reset_runners
+    from repro_torch.learn.adapt import SearchGrid, bandit, hill_climb
+    blocks, lengths = adapt_corpus()
+    base, grid = adapt_base(), SearchGrid(**ADAPT_AXES)
+    # a set: the base config is also an arm of this grid (one runner)
+    cfgs = {base} | {grid.config(base, a) for a in range(grid.n_arms)}
+    runs = {"hill": lambda d: hill_climb(base, blocks, lengths, grid,
+                                         device=d),
+            "bandit": lambda d: bandit(base, blocks, lengths, grid,
+                                       episodes=4, seed=3, device=d)}
+    reset_runners()
+    captured = 0
+    for name, run in runs.items():
+        card, cpu = run(cuda), run("cpu")
+        assert card.arms == cpu.arms and card.history == cpu.history
+        assert any(a >= 0 for a in card.arms), name
+        np.testing.assert_array_equal(card.hit_ratios, cpu.hit_ratios)
+        for a, b in zip(card.base_result.stats, cpu.base_result.stats):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        now = sum(chunk_runner(c, device=cuda).captures for c in cfgs)
+        assert card.compiles == now - captured
+        assert all(chunk_runner(c, device=cuda).captures <= 1 for c in cfgs)
+        captured = now
+        again = run(cuda)
+        assert again.compiles == 0 and again.history == card.history
+        np.testing.assert_array_equal(again.hit_ratios, card.hit_ratios)
+    assert captured > 0
+
+
+@pytest.mark.cuda
+def test_first_search_captures_one_graph_per_config(cuda):
+    """From fresh runners a hill-climb captures exactly one graph for
+    each distinct config it swept (its sweeps share one lane width)."""
+    from repro_torch.cache import chunk_runner, reset_runners
+    from repro_torch.learn.adapt import SearchGrid, hill_climb
+    blocks, lengths = adapt_corpus()
+    base, grid = adapt_base(), SearchGrid(**ADAPT_AXES)
+    reset_runners()
+    r = hill_climb(base, blocks, lengths, grid, device=cuda)
+    cfgs = {base} | {grid.config(base, a) for a in range(grid.n_arms)}
+    captured = sum(chunk_runner(c, device=cuda).captures for c in cfgs)
+    assert r.compiles == captured > 0
+
+
+@pytest.mark.cuda
+def test_training_on_the_card_equals_the_cpu(cuda):
+    """Both heads, 400 steps, from one generator seed: the fixed-order
+    head and optimizer give the card the CPU's parameters bit for bit;
+    a loss differs by at most the library log1p's last bit."""
+    from repro_torch.learn import train
+    from repro_torch.traces import build_corpus, corpus_specs, stack_padded
+    _, blocks, lengths = stack_padded(build_corpus(corpus_specs(4000,
+                                                                "quick")))
+    x, y = train.extract_features(blocks, lengths, stride=4)
+    for kind in ("logreg", "mlp"):
+        card = train.train_head(kind, x, y, steps=400, seed=0, device=cuda)
+        cpu = train.train_head(kind, x, y, steps=400, seed=0, device="cpu")
+        for k in cpu[0]:
+            assert torch.equal(card[0][k], cpu[0][k]), (kind, k)
+        assert max(abs(a - b) for a, b in zip(card[1], cpu[1])) <= 1e-6

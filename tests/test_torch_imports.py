@@ -45,7 +45,11 @@ ALONE_MODULES = ["repro_torch.cache.tiered", "repro_torch.launch.serve",
                  "repro_torch.kernels.paged_decode",
                  "repro_torch.kernels.hash_lookup",
                  "repro_torch.kernels.mithril_record",
-                 "repro_torch.kernels.mithril_mine_step"]
+                 "repro_torch.kernels.mithril_mine_step",
+                 # the learned & adaptive lane and the real-corpus drop-in
+                 "repro_torch.learn", "repro_torch.learn.adapt",
+                 "repro_torch.learn.train", "repro_torch.models",
+                 "repro_torch.optim", "repro_torch.traces.io"]
 
 
 @pytest.mark.parametrize("name", ALONE_MODULES)
@@ -104,3 +108,25 @@ def test_kernel_sources_and_build_flags():
     assert "arch=compute_90a,code=sm_90a" in backend.NVCC_FLAGS
     assert backend.BUILD_DIR == ROOT / "build" / "kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_chip_smoke_adaptive_constants_equal_adaptive_bench():
+    """chip_smoke.py's learned phase keeps its own copy of the adaptive
+    bench's grid, base, bandit settings and decision CRC."""
+    import zlib
+
+    import chip_smoke
+    from benchmarks import adaptive_bench
+    from repro_torch.learn.adapt import SearchGrid
+    grid = SearchGrid(**chip_smoke.ADAPT_GRID)
+    assert (grid.lookaheads, grid.min_supports, grid.pf_sizes) == (
+        adaptive_bench.GRID.lookaheads, adaptive_bench.GRID.min_supports,
+        adaptive_bench.GRID.pf_sizes)
+    assert chip_smoke.ADAPT_BASE == adaptive_bench.BASE
+    assert (chip_smoke.EPISODES, chip_smoke.SEED, chip_smoke.TOP_K) == (
+        adaptive_bench.EPISODES, adaptive_bench.SEED, adaptive_bench.TOP_K)
+    history = ((0, 1024, 3, 7, 0.25), (1, 2048, 0, -1, 0.5))
+    assert chip_smoke._crc(history) == adaptive_bench._crc(history) == \
+        f"{zlib.crc32(repr(history).encode()):08x}"
+    assert chip_smoke.ADAPT_BASE in chip_smoke.parity_grid(
+        chip_smoke.PARITY_CAPACITY)
