@@ -99,14 +99,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
    kernel once per demand fetch and the mining run (and the lookup after
    it) once per mining run, and the line gives the host time of a mining
    run and of a miss outside mining;
-8. profile — 300 replayed steps of the real-size sweep under
+8. model — the model substrate (``models.lm``, ``launch.serve``):
+   (a) ``reduced_config`` llama3.2-3b and qwen2-moe-a2.7b (weights from
+   the CPU generator of seed 0), prefill then 4 teacher-forced decode
+   steps on the card, logits within rtol = atol = 5e-2 of a CPU run in a
+   child process (started after the parity phase); (b) llama3.2-3b at its
+   published widths (28 layers, d 3,072, 24 / 8 heads, d_ff 8,192, vocab
+   128,256, tied; weights from a seeded card generator) through
+   ``ServeLoop`` with ``launch.serve.main``'s defaults (4 requests x
+   32-token prompts x 16 decode steps): prefill seconds a request,
+   decode ms a token (p50, p99), tok/s, peak device memory, the
+   weights-read-once bound, kernels and device time a token from a
+   profiled window; every logit finite; its depth-cut twin (the
+   embedding and first 2 layers) on the card and copied to the CPU
+   agree within the same tolerance; (c) ``benchmarks/expert_prefetch.py``'s
+   path: the expert access stream captured from the MoE routers of a
+   reduced qwen2-moe (16 experts, top 4, 8 layers, 6 tenants' 2 x 64
+   tokens) on the card, then ``simulate`` with LRU and MITHRIL-LRU
+   (capacity 48, ``SUITE_MITHRIL`` with lookahead 40, support 2)
+   through the record kernel and the mining run: the trace and both
+   ``Stats`` must equal the CPU child's;
+9. profile — 300 replayed steps of the real-size sweep under
    ``torch.profiler``: device idle share, kernels a step, and the launch
    counters against the profiler's count of the record kernel and the
    mining run.
 
 A captured graph calls no Python at replay, so the runner counts each
 graph's launches at its capture and adds them at every replay: the
-counters stay the launches the card ran. The main path is phases 3-7:
+counters stay the launches the card ran. The main path is phases 3-8:
 the launch counters are zeroed just before the parity sweeps and read
 after each of the later phases' main runs (the learned phase's searches
 launch the record kernel and the mining run); the
@@ -2512,6 +2532,350 @@ def phase_serving(dev, child: subprocess.Popen) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the model substrate
+# ---------------------------------------------------------------------------
+
+MODEL_TOL = 5e-2              # rtol = atol: tests/test_torch_lm.py's
+MODEL_REDUCED = ("llama3.2-3b", "qwen2-moe-a2.7b")
+MODEL_PROMPT, MODEL_DECODE = 24, 4    # prefill, then teacher-forced steps
+SERVE_ARCH = "llama3.2-3b"
+SERVE_ARGS = dict(requests=4, prompt_len=32, decode_steps=16)  # main's
+TWIN_LAYERS = 2
+# benchmarks/expert_prefetch.py's geometry
+EXPERT = dict(n_experts=16, top_k=4, n_layers=8, tenants=6, batch=(2, 64),
+              capacity=48, lookahead=40, min_support=2)
+
+
+def teacher_forced(cfg, model, tokens, dev) -> list:
+    """Prefill ``tokens[:, :-MODEL_DECODE]`` (cache padded for the
+    steps), then decode the remaining tokens one at a time; the logits
+    of each call as float32 numpy."""
+    import torch
+    from repro_torch.models import lm
+    tokens = torch.as_tensor(tokens, device=dev)
+    s = tokens.shape[1] - MODEL_DECODE
+    logits, cache = lm.prefill(cfg, model, {"tokens": tokens[:, :s]},
+                               pad_to=tokens.shape[1] + 8)
+    out = [logits]
+    for i in range(MODEL_DECODE):
+        pos = torch.full((tokens.shape[0],), s + i, dtype=torch.int32,
+                         device=dev)
+        logits, cache = lm.decode_step(cfg, model, cache, tokens[:, s + i],
+                                       pos)
+        out.append(logits)
+    return [t.float().cpu().numpy() for t in out]
+
+
+def reduced_model(arch: str, dev):
+    """``reduced_config(arch)`` with weights from the CPU generator of
+    seed 0 (the same bits in every process), on ``dev``; and its tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import lm
+    cfg = reduced_config(get_config(arch))
+    model = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu").to(dev)
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, MODEL_PROMPT + MODEL_DECODE)).astype(np.int64)
+    return cfg, model, tokens
+
+
+def expert_setup(dev):
+    """benchmarks/expert_prefetch.py's model and token batches: reduced
+    qwen2-moe with 16 experts, top 4, 8 layers (weights from the CPU
+    generator of seed 0), 6 tenants' batches of 2 x 64 tokens."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(reduced_config(get_config("qwen2-moe-a2.7b")),
+                              n_experts=EXPERT["n_experts"],
+                              top_k=EXPERT["top_k"],
+                              n_layers=EXPERT["n_layers"])
+    model = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu").to(dev)
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(lo, lo + cfg.vocab // 8, EXPERT["batch"])
+               for lo in rng.integers(0, cfg.vocab // 2, EXPERT["tenants"])]
+    return cfg, model, batches
+
+
+def expert_sim_configs():
+    import dataclasses
+    from repro_torch.cache import SimConfig
+    from repro_torch.configs import SUITE_MITHRIL
+    mith = dataclasses.replace(SUITE_MITHRIL, lookahead=EXPERT["lookahead"],
+                               min_support=EXPERT["min_support"])
+    return {"lru": SimConfig(capacity=EXPERT["capacity"]),
+            "mithril-lru": SimConfig(capacity=EXPERT["capacity"],
+                                     use_mithril=True, mithril=mith)}
+
+
+def stats_dict(res) -> dict:
+    return {k: v.tolist() for k, v in res.stats._asdict().items()}
+
+
+def model_cross_check_child() -> None:
+    """Child process: phase 8's reduced models and the expert capture and
+    simulations on the CPU; prints them as JSON."""
+    import torch
+    from repro_torch.cache import SimSession, simulate
+    from repro_torch.traces.capture import capture_expert_trace
+    torch.set_num_threads(2)
+    t0 = time.time()
+    out = {"reduced": {}}
+    for arch in MODEL_REDUCED:
+        cfg, model, tokens = reduced_model(arch, "cpu")
+        out["reduced"][arch] = [a.tolist() for a in teacher_forced(
+            cfg, model, tokens, "cpu")]
+    cfg, model, batches = expert_setup("cpu")
+    trace = capture_expert_trace(cfg, model, batches)
+    out["trace"] = trace.tolist()
+    out["stats"] = {name: stats_dict(simulate(sim, trace, device="cpu"))
+                    for name, sim in expert_sim_configs().items()}
+    sess = SimSession(expert_sim_configs()["mithril-lru"], device="cpu")
+    sess.feed(trace)
+    out["mining_runs"] = int(sess.carry["mith"].n_mines[0])
+    out["seconds"] = time.time() - t0
+    print(json.dumps(out), flush=True)
+
+
+def start_model_cross_check() -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--model-cross-check"], stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES=""))
+
+
+def logits_err(got, want) -> dict:
+    """Largest |got - want| and whether every logit is within
+    atol + rtol * |want| (rtol = atol = MODEL_TOL)."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return {"max_abs_err": float(np.abs(got - want).max()),
+            "within_tol": bool(np.all(np.abs(got - want)
+                                      <= MODEL_TOL * (1 + np.abs(want))))}
+
+
+def serve_full_width(dev) -> tuple:
+    """llama3.2-3b at its published widths through ``ServeLoop``: weights
+    from a seeded card generator, ``launch.serve.main``'s defaults
+    (4 requests x 32-token prompts x 16 decode steps); every request's
+    prefill and every step timed on the host clock, ending in a
+    synchronise. Returns (line, model)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import ServeLoop
+    from repro_torch.models import lm
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.synchronize()
+    before = int(torch.cuda.memory_allocated())   # earlier phases' state
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = int(torch.cuda.max_memory_allocated())
+    held = int(torch.cuda.memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    a = SERVE_ARGS
+    loop = ServeLoop(cfg, model,
+                     max_len=a["prompt_len"] + a["decode_steps"] + 8)
+    rng = np.random.default_rng(0)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    prefill_s = []
+    for rid in range(a["requests"]):
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab, a["prompt_len"]),
+                                 dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        loop.admit(rid, prompt)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        finite &= torch.isfinite(loop.requests[rid]["logits"]).all()
+    step_s = []
+    for _ in range(a["decode_steps"]):
+        t0 = time.perf_counter()
+        loop.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        for st in loop.requests.values():
+            finite &= torch.isfinite(st["logits"]).all()
+    per_token_ms = [t / a["requests"] * 1e3 for t in step_s]
+    decode_s = sum(step_s)
+    serve_peak = int(torch.cuda.max_memory_allocated())
+    stats = dict(loop.stats)
+    positions = sorted({st["pos"] for st in loop.requests.values()})
+    # off the timed run: kernels and device time of a decoded token, from
+    # a profiler trace of 1 + 2 more steps (the cache has room for them)
+    reps = 2
+    rows = profiled_kernels(loop.step, reps)
+    kernels = [r for r in rows if not r[0].startswith(("Memcpy", "Memset"))]
+    tokens = reps * a["requests"]
+    device_ms = sum(t for _, t, _ in rows) / 1e3 / tokens
+    line = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.head_dim,
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+            "tied": cfg.tie_embeddings, "params": n_params,
+            "weight_bytes": w_bytes, "init_seconds": init_s,
+            **a, "stats": stats,
+            "prefill_seconds": prefill_s,
+            "prefill_seconds_p50": statistics.median(prefill_s),
+            "decode_ms_a_token_p50": float(np.percentile(per_token_ms, 50)),
+            "decode_ms_a_token_p99": float(np.percentile(per_token_ms, 99)),
+            "decode_ms_a_token": per_token_ms,
+            "tok_s": stats["tokens"] / decode_s,
+            "decode_seconds": decode_s,
+            "bound_ms_a_token": w_bytes / HBM_BYTES_PER_S * 1e3,
+            "max_memory_allocated": serve_peak,
+            "max_memory_allocated_init": init_peak,
+            "memory_allocated_before_init": before,
+            "memory_allocated_after_init": held,
+            "serving_peak_over_before": serve_peak - before,
+            "kernels_a_token": sum(n for _, _, n in kernels) / tokens,
+            "device_ms_a_token": device_ms,
+            "device_idle_share": 1.0 - device_ms / float(
+                np.percentile(per_token_ms, 50)),
+            "top_device_time": [
+                {"kernel": k[:80], "ms_a_token": t / 1e3 / tokens,
+                 "launches_a_token": n / tokens}
+                for k, t, n in sorted(rows, key=lambda r: -r[1])[:6]],
+            "all_logits_finite": bool(finite),
+            "positions": positions}
+    return line, model
+
+
+def depth_cut_twin(cfg_full, model, dev) -> dict:
+    """The full-width model's embedding, final norm and first
+    TWIN_LAYERS layers as a model of that depth, on the card and copied
+    to the CPU: teacher-forced logits of both must agree."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(cfg_full, n_layers=TWIN_LAYERS)
+    keep = {k: v for k, v in model.state_dict().items()
+            if not k.startswith("layers.")
+            or int(k.split(".")[1]) < TWIN_LAYERS}
+    twins = {}
+    for name, where in (("card", dev), ("cpu", "cpu")):
+        twin = lm.CausalLM(cfg, device="meta")
+        twin.load_state_dict({k: v.to(where) for k, v in keep.items()},
+                             assign=True)
+        twins[name] = twin
+    tokens = np.random.default_rng(2).integers(
+        0, cfg.vocab, (1, SERVE_ARGS["prompt_len"] + MODEL_DECODE))
+    t0 = time.time()
+    card = teacher_forced(cfg, twins["card"], tokens, dev)
+    cpu = teacher_forced(cfg, twins["cpu"], tokens, "cpu")
+    per_call = [logits_err(a, b) for a, b in zip(card, cpu)]
+    return {"layers": TWIN_LAYERS, "calls": len(per_call),
+            "max_abs_err": max(e["max_abs_err"] for e in per_call),
+            "within_tol": all(e["within_tol"] for e in per_call),
+            "finite": bool(all(np.isfinite(a).all() for a in card)),
+            "seconds": time.time() - t0}
+
+
+def phase_model(dev, child: subprocess.Popen) -> dict:
+    """(a) reduced llama3.2-3b and qwen2-moe on the card against the CPU
+    child; (b) llama3.2-3b at full width through ``ServeLoop``, held by
+    its depth-cut twin; (c) the expert-prefetch path: capture from the
+    MoE routers on the card, then ``simulate`` LRU and MITHRIL-LRU on
+    the card (record kernel, mining run), against the CPU child's trace
+    and ``Stats``. Returns the launch counts of (c)."""
+    import numpy as np
+    import torch
+    from repro_torch.cache import simulate
+    from repro_torch.kernels import ops
+    from repro_torch.traces.capture import capture_expert_trace
+    t_phase = time.time()
+    info = {"phase": "model", "tolerance": {"rtol": MODEL_TOL,
+                                            "atol": MODEL_TOL},
+            "reduced": {}}
+    card_reduced = {}
+    for arch in MODEL_REDUCED:
+        cfg, model, tokens = reduced_model(arch, dev)
+        card_reduced[arch] = teacher_forced(cfg, model, tokens, dev)
+    line, model = serve_full_width(dev)
+    info["full_width"] = line
+    info["full_width"]["twin"] = depth_cut_twin(model.cfg, model, dev)
+    del model
+    torch.cuda.empty_cache()
+
+    cfg, model, batches = expert_setup(dev)
+    ops.reset_launch_counts()           # (a) and (b) launch none of them
+    t0 = time.time()
+    trace = capture_expert_trace(cfg, model, batches)
+    capture_s = time.time() - t0
+    expert = {"geometry": EXPERT, "accesses": len(trace),
+              "unique_shards": int(len(np.unique(trace))),
+              "capture_seconds": capture_s, "runs": {}}
+    card_stats = {}
+    for name, sim in expert_sim_configs().items():
+        t0 = time.time()
+        res = simulate(sim, trace, device=dev)
+        card_stats[name] = stats_dict(res)
+        precision = res.precision(1)       # NaN when none was issued
+        expert["runs"][name] = {"hit_ratio": res.hit_ratio,
+                                "precision": (None if precision != precision
+                                              else precision),
+                                "seconds": time.time() - t0,
+                                "stats": card_stats[name]}
+    counts = ops.launch_counts()
+    expert["launches"] = counts
+    info["expert_prefetch"] = expert
+
+    out, _ = child.communicate(timeout=900)
+    if child.returncode != 0:
+        emit(info)
+        fail("model: CPU cross-check process failed")
+    cpu = json.loads(out.strip().splitlines()[-1])
+    bad = []
+    for arch in MODEL_REDUCED:
+        errs = [logits_err(a, b) for a, b in
+                zip(card_reduced[arch], cpu["reduced"][arch])]
+        info["reduced"][arch] = {
+            "calls": len(errs),
+            "max_abs_err": max(e["max_abs_err"] for e in errs),
+            "within_tol": all(e["within_tol"] for e in errs),
+            "finite": bool(all(np.isfinite(a).all()
+                               for a in card_reduced[arch]))}
+        if not (info["reduced"][arch]["within_tol"]
+                and info["reduced"][arch]["finite"]):
+            bad.append(f"reduced {arch}")
+    expert["trace_equal_cpu"] = trace.tolist() == cpu["trace"]
+    expert["stats_equal_cpu"] = card_stats == cpu["stats"]
+    expert["mining_runs_cpu"] = cpu["mining_runs"]
+    info["cpu_seconds"] = cpu["seconds"]
+    info["seconds"] = time.time() - t_phase
+    emit(info)
+    fw = info["full_width"]
+    if not fw["all_logits_finite"]:
+        bad.append("full width: a logit is not finite")
+    if fw["stats"]["tokens"] != SERVE_ARGS["requests"] * SERVE_ARGS[
+            "decode_steps"] or fw["positions"] != [SERVE_ARGS["prompt_len"]
+                                                   + SERVE_ARGS[
+                                                       "decode_steps"]]:
+        bad.append(f"full width: {fw['stats']} tokens")
+    if not (fw["twin"]["within_tol"] and fw["twin"]["finite"]):
+        bad.append("full width: the depth-cut twin differs from the CPU")
+    if not expert["trace_equal_cpu"]:
+        bad.append("expert trace differs from the CPU's")
+    if not expert["stats_equal_cpu"]:
+        bad.append("expert Stats differ from the CPU's")
+    if not (counts["mithril_record"] and counts["mithril_mine_step"]):
+        bad.append(f"expert prefetch launched {counts}")
+    if bad:
+        fail(f"model: {bad}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--cross-check":
@@ -2521,6 +2885,10 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--serving-cross-check":
         sys.path.insert(0, str(SRC))
         serving_cross_check_child()
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--model-cross-check":
+        sys.path.insert(0, str(SRC))
+        model_cross_check_child()
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--parity":
         import torch
@@ -2570,15 +2938,20 @@ def run(children: dict, t_start: float) -> int:
 
     timing, errs, floor = phase_kernels(dev)
     # the main path: the parity sweeps (in child processes, whose
-    # counters start at zero), the real-size sweep and the serving runs,
-    # counted from zero here to the end of the serving phase
+    # counters start at zero), the real-size sweep, the serving runs and
+    # the expert-prefetch simulations, counted from zero here to the end
+    # of the model phase
     from repro_torch.kernels import ops
     ops.reset_launch_counts()
     by_path = {"parity": phase_parity()}
+    # after the parity phase's three processes: the model phase's CPU
+    # child (about a minute) runs while the card works on
+    children["model"] = start_model_cross_check()
     by_path["real_size"], real = phase_real(dev, children["real_size"])
     by_path["streaming"] = phase_streaming(dev, real)
     by_path["learned"] = phase_learned(dev)
     by_path["serving"] = phase_serving(dev, children["serving"])
+    by_path["model"] = phase_model(dev, children["model"])
     counts = {k: sum(c[k] for c in by_path.values()) for k in KERNEL_INFO}
     merges = by_path["serving"]["paged_decode_merge"]    # only serving
     missing = [k for k, v in counts.items() if v == 0 and k not in OFF_PATH]

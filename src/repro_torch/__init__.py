@@ -11,6 +11,12 @@ Two paths, with every kernel hand-written in CUDA C++ for Hopper
   whose predicted pages it prefetches (record, mining and lookup
   kernels), one paged flash-decode launch a step.
 
+Beside them, the model substrate's serving half: ``models.lm`` (dense,
+GQA/SWA and MoE transformers, plain PyTorch, forward only) driven by
+``launch.serve.ServeLoop``, and ``traces.capture``, whose expert access
+stream, captured from a MoE model's routers, MITHRIL simulates through
+the sweep's kernels.
+
 Module names mirror ``repro``'s. Entry points take ``device=None``, meaning the card;
 only an explicit ``device="cpu"`` runs on the CPU.
 

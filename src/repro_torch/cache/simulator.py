@@ -292,6 +292,13 @@ class SimSession:
     def requests_fed(self) -> int:
         return self._fed
 
+    @property
+    def carry(self) -> dict:
+        """The engine's carry after the requests fed so far: cache state,
+        MITHRIL state (``carry["mith"].n_mines`` counts mining runs) and
+        counters, each leaf with a leading lanes axis of 1."""
+        return self._carry
+
     def feed(self, blocks) -> None:
         """Append arrived requests; each runs immediately."""
         if self._done:

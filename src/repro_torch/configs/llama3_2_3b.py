@@ -1,0 +1,9 @@
+"""llama3.2-3b [dense] — small llama3, GQA. [hf:meta-llama/Llama-3.2-3B]"""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3.2-3b", family="dense",
+    n_layers=28, d_model=3072, n_heads=24, n_kv_heads=8,
+    d_ff=8192, vocab=128256, rope_theta=5e5, tie_embeddings=True,
+)

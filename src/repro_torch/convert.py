@@ -19,7 +19,13 @@ A state produced by the JAX reference (as numpy arrays, or anything
   counters and MITHRIL state;
 * :func:`policy_head_from` carries a reference policy head's parameters
   (``w``, ``b`` / ``w1``, ``b1``, ``w2``, ``b2``, as numpy) across as
-  the port's float32 tensors, so that both train from the same start.
+  the port's float32 tensors, so that both train from the same start;
+* :func:`lm_params_from` carries a reference language model's parameter
+  pytree (as numpy: groups stacked over a leading repeats axis, ``u<j>``
+  units) into the port's ``models.lm.CausalLM``, one tensor per layer,
+  dtypes kept (bf16 weights, the float32 MoE router);
+  :func:`lm_state_names` names, for each entry of the port's state dict,
+  the reference leaf it comes from.
 
 The port's functions take a leading lanes axis; the reference's sweep
 carry has one, a single reference state gets one with ``lanes=True``.
@@ -28,7 +34,7 @@ carry has one, a single reference state gets one with ``lanes=True``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Union
+from typing import Any, Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -149,3 +155,58 @@ def policy_head_from(ref_params: Any,
                             "float32")
         out[name] = torch.tensor(arr, dtype=torch.float32, device=dev)
     return out
+
+
+def lm_state_names(cfg) -> Dict[str, Tuple]:
+    """``{port state-dict name: reference path}`` for a model of ``cfg``.
+
+    A path indexes the reference's pytree step by step, a trailing int
+    picking a layer's slice of its group's repeats axis:
+    ``"layers.3.attn.wq"`` comes from ``("blocks", 0, "u0", "attn", "wq",
+    3)``, ``params["blocks"][0]["u0"]["attn"]["wq"][3]``."""
+    from .models.lm import CausalLM, layer_slots
+    slots = layer_slots(cfg)
+    names = {}
+    for name in CausalLM(cfg, device="meta").state_dict():
+        head, _, rest = name.partition(".")
+        if head != "layers":
+            names[name] = (name,)
+            continue
+        i, _, sub = rest.partition(".")
+        gi, j, r, _ = slots[int(i)]
+        names[name] = ("blocks", gi, f"u{j}", *sub.split("."), r)
+    return names
+
+
+def _leaf_tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:
+    arr = np.array(arr)                     # a writable copy
+    if arr.dtype.name == "bfloat16":        # numpy's bf16 (ml_dtypes): bits
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    if t.dtype != dtype:
+        raise TypeError(f"reference leaf is {t.dtype}, the port's {dtype}")
+    return t.to(device)
+
+
+def lm_params_from(params_np: Any, cfg,
+                   device: Union[None, str, torch.device] = None):
+    """A reference model's parameters (its pytree, leaves as numpy) as the
+    port's ``CausalLM`` on ``device`` (None: the card)."""
+    from .kernels.backend import resolve_device
+    from .models.lm import CausalLM
+    dev = resolve_device(device)
+    model = CausalLM(cfg, device=dev)
+    state = model.state_dict()
+    with torch.no_grad():
+        for name, path in lm_state_names(cfg).items():
+            leaf = params_np
+            for key in path:
+                leaf = leaf[key]
+            value = _leaf_tensor(leaf, state[name].dtype, dev)
+            if value.shape != state[name].shape:
+                raise ValueError(f"{name}: reference shape "
+                                 f"{tuple(value.shape)}, the port's "
+                                 f"{tuple(state[name].shape)}")
+            state[name].copy_(value)
+    return model

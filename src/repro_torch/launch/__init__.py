@@ -1,2 +1,3 @@
-"""Entry points of the port: the measured serving engine over the tiered
-paged-KV cache (``launch.serve``)."""
+"""Entry points of the port (``launch.serve``): the language model's
+decode loop ``ServeLoop`` and its ``main``, and the measured serving
+engine over the tiered paged-KV cache."""

@@ -1,10 +1,21 @@
-"""Continuous-batching decode over a MITHRIL-managed tiered KV cache.
+"""Serving drivers: a language model's decode loop, and continuous-batching
+decode over a MITHRIL-managed tiered KV cache.
 
-Counterpart of ``TieredServeEngine`` in ``repro/launch/serve.py``, the
-measured serving scenario: requests carrying KV page working sets
-arrive on a virtual clock (multi-tenant on-off arrivals in
-``chip_smoke.py``), and each step flash-decodes the active batch over
-the tier's device pool in one kernel launch.
+``ServeLoop`` is the reference's model driver: each admitted request is
+prefilled on its own (its cache padded to ``max_len``), then every step
+decodes one greedy token for each active request in turn.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b
+
+``main`` runs the reduced configuration, as the reference's does, with
+weights from a seeded generator on the device (the card unless
+``--device cpu``).
+
+``TieredServeEngine`` is the measured serving scenario, the counterpart
+of the reference's: requests carrying KV page working sets arrive on a
+virtual clock (multi-tenant on-off arrivals in ``chip_smoke.py``), and
+each step flash-decodes the active batch over the tier's device pool in
+one kernel launch.
 
     from repro_torch.cache.tiered import TieredKVCache
     from repro_torch.launch.serve import TieredServeEngine
@@ -12,13 +23,11 @@ the tier's device pool in one kernel launch.
     eng = TieredServeEngine(tier, max_batch=3, n_q_heads=4)
     eng.submit(0, pages, decode_steps=3, arrival=0)
     metrics = eng.run()
-
-The reference's ``ServeLoop`` and ``main`` drive a language model; they
-wait for the port of the model substrate.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import time
 from typing import Dict, List
@@ -27,6 +36,55 @@ import numpy as np
 import torch
 
 from ..cache.tiered import TieredKVCache
+from ..configs import get_config, reduced_config
+from ..core.config import MithrilConfig
+from ..kernels.backend import resolve_device
+from ..models.lm import decode_step, init_params, prefill
+
+
+class ServeLoop:
+    """Per-request prefill and greedy decode of a language model.
+
+    ``admit`` prefills one prompt (its cache padded to ``max_len``) and
+    takes its first token by ``argmax``; ``step`` decodes one token for
+    every active request, one request after another. ``stats`` counts
+    prefills, steps and tokens. A request's state holds its cache, last
+    token, position and last logits. ``mith_cfg`` is the MITHRIL
+    configuration the reference keeps beside the loop; nothing reads it.
+    """
+
+    def __init__(self, cfg, model, *, max_len: int, mithril: bool = True):
+        self.cfg, self.model = cfg, model
+        self.max_len = max_len
+        self.requests = {}
+        mcfg = MithrilConfig(min_support=2, max_support=8, lookahead=40,
+                             rec_buckets=256, rec_ways=4, mine_rows=32,
+                             pf_buckets=256, pf_ways=4) if mithril else None
+        self.mith_cfg = mcfg
+        self.stats = {"prefills": 0, "decode_steps": 0, "tokens": 0}
+
+    def admit(self, rid: int, prompt: torch.Tensor):
+        """Prefill ``prompt`` (1-D token ids on the model's device)."""
+        logits, cache = prefill(self.cfg, self.model,
+                                {"tokens": prompt[None]},
+                                pad_to=self.max_len)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        self.requests[rid] = {"cache": cache, "tok": tok,
+                              "pos": prompt.shape[0], "logits": logits}
+        self.stats["prefills"] += 1
+
+    def step(self):
+        """One decode step for every active request."""
+        for st in self.requests.values():
+            pos = torch.full((1,), st["pos"], dtype=torch.int32,
+                             device=st["tok"].device)
+            logits, st["cache"] = decode_step(self.cfg, self.model,
+                                              st["cache"], st["tok"], pos)
+            st["tok"] = torch.argmax(logits, -1).to(torch.int32)
+            st["logits"] = logits
+            st["pos"] += 1
+            self.stats["tokens"] += 1
+        self.stats["decode_steps"] += 1
 
 
 def _percentiles(xs: List[float]) -> Dict[str, float]:
@@ -178,3 +236,53 @@ class TieredServeEngine:
             "step_latency_s_p95": round(lat["p95"], 6),
             "step_latency_s_p99": round(lat["p99"], 6),
         }
+
+
+def main(argv=None) -> dict:
+    """Serve ``--requests`` random prompts for ``--decode-steps`` steps;
+    prints and returns the prefill and decode seconds and tok/s."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--decode-steps", type=int, default=16)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    a = ap.parse_args(argv)
+
+    dev = resolve_device(a.device)
+    cfg = reduced_config(get_config(a.arch))
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    loop = ServeLoop(cfg, model,
+                     max_len=a.prompt_len + a.decode_steps + 8)
+    rng = np.random.default_rng(0)
+
+    def wait():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    for rid in range(a.requests):
+        loop.admit(rid, torch.as_tensor(
+            rng.integers(0, cfg.vocab, a.prompt_len), dtype=torch.int32,
+            device=dev))
+    wait()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(a.decode_steps):
+        loop.step()
+    wait()
+    t_decode = time.perf_counter() - t0
+    out = {"arch": cfg.name, "device": str(dev), "requests": a.requests,
+           "prefill_seconds": t_prefill, "tokens": loop.stats["tokens"],
+           "decode_seconds": t_decode,
+           "tok_s": loop.stats["tokens"] / max(t_decode, 1e-9)}
+    print(f"{a.requests} requests: prefill {t_prefill:.2f}s, "
+          f"{out['tokens']} tokens decoded in {t_decode:.2f}s "
+          f"({out['tok_s']:.1f} tok/s on {dev})")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1009,3 +1009,69 @@ def test_training_on_the_card_equals_the_cpu(cuda):
         for k in cpu[0]:
             assert torch.equal(card[0][k], cpu[0][k]), (kind, k)
         assert max(abs(a - b) for a, b in zip(card[1], cpu[1])) <= 1e-6
+
+
+def teacher_forced_logits(cfg, model, tokens, dev, steps=4):
+    from repro_torch.models import lm
+    tokens = torch.as_tensor(tokens, device=dev)
+    s = tokens.shape[1] - steps
+    logits, cache = lm.prefill(cfg, model, {"tokens": tokens[:, :s]},
+                               pad_to=tokens.shape[1] + 8)
+    out = [logits]
+    for i in range(steps):
+        pos = torch.full((tokens.shape[0],), s + i, device=dev)
+        logits, cache = lm.decode_step(cfg, model, cache, tokens[:, s + i],
+                                       pos)
+        out.append(logits)
+    return [t.cpu().numpy() for t in out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2-moe-a2.7b"])
+def test_reduced_model_decode_on_the_card_matches_the_cpu(cuda, arch):
+    """Prefill and 4 teacher-forced decode steps of ``reduced_config``
+    (weights from the CPU generator of seed 0) on the card, within
+    rtol = atol = 5e-2 of the CPU's logits, all finite."""
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.models import lm
+    cfg = reduced_config(ARCHS[arch])
+    model = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (2, 28))
+    cpu = teacher_forced_logits(cfg, model, tokens, "cpu")
+    card = teacher_forced_logits(cfg, model.to(cuda), tokens, cuda)
+    for a, b in zip(card, cpu):
+        assert np.isfinite(a).all()
+        np.testing.assert_allclose(a, b, rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.cuda
+def test_expert_trace_and_stats_on_the_card_equal_the_cpu(cuda):
+    """benchmarks/expert_prefetch.py's capture (reduced qwen2-moe, 16
+    experts, top 4, 8 layers) and its LRU and MITHRIL-LRU simulations:
+    the card's trace and Stats equal the CPU's."""
+    import dataclasses
+    from repro_torch.cache import SimConfig, simulate
+    from repro_torch.configs import ARCHS, SUITE_MITHRIL, reduced_config
+    from repro_torch.models import lm
+    from repro_torch.traces.capture import capture_expert_trace
+    cfg = dataclasses.replace(reduced_config(ARCHS["qwen2-moe-a2.7b"]),
+                              n_experts=16, top_k=4, n_layers=8)
+    model = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(lo, lo + cfg.vocab // 8, (2, 64))
+               for lo in rng.integers(0, cfg.vocab // 2, 6)]
+    trace = capture_expert_trace(cfg, model, batches)
+    card_trace = capture_expert_trace(cfg, model.to(cuda), batches)
+    np.testing.assert_array_equal(card_trace, trace)
+    mith = dataclasses.replace(SUITE_MITHRIL, lookahead=40, min_support=2)
+    for sim in (SimConfig(capacity=48),
+                SimConfig(capacity=48, use_mithril=True, mithril=mith)):
+        before = ops.launch_counts()["mithril_record"]
+        card = simulate(sim, trace, device=cuda)
+        cpu = simulate(sim, trace, device="cpu")
+        for name, a, b in zip(cpu.stats._fields, card.stats, cpu.stats):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        launched = ops.launch_counts()["mithril_record"] - before
+        assert (launched > 0) == sim.use_mithril

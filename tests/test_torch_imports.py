@@ -49,7 +49,10 @@ ALONE_MODULES = ["repro_torch.cache.tiered", "repro_torch.launch.serve",
                  # the learned & adaptive lane and the real-corpus drop-in
                  "repro_torch.learn", "repro_torch.learn.adapt",
                  "repro_torch.learn.train", "repro_torch.models",
-                 "repro_torch.optim", "repro_torch.traces.io"]
+                 "repro_torch.optim", "repro_torch.traces.io",
+                 # the model substrate's serving half
+                 "repro_torch.models.lm", "repro_torch.configs",
+                 "repro_torch.traces.capture"]
 
 
 @pytest.mark.parametrize("name", ALONE_MODULES)
@@ -74,6 +77,26 @@ def test_serving_entry_points_without_a_card_raise():
     tier = TieredKVCache(8, 4, 2, 1, 4, device="cpu")
     assert tier.hbm_k.device.type == "cpu"
     assert not tier.host_k.is_pinned()
+
+
+def test_serve_main_without_a_card_raises():
+    """``python -m repro_torch.launch.serve`` runs on the card: without
+    one it raises before building a model, never falling back to the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.launch.serve import main
+    from repro_torch.models import lm
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--arch", "qwen2-moe-a2.7b"])
+    cfg = reduced_config(ARCHS["llama3.2-3b"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_cache(cfg, 1, 8)
 
 
 def test_sources_name_neither_jax_nor_the_reference():
