@@ -43,10 +43,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    capacity 512, in three processes at once, through the chunk runner
    (one captured CUDA graph a label, replayed); each label's rounded hit
    ratios (and mean precision) must equal the ``corpus_figures_quick``
-   rows of ``results/bench/BENCH_baseline_quick.json``; a MITHRIL label
-   is swept again, which must capture nothing and give the same bits,
-   under ``torch.profiler``, whose device time of the mining kernel is
-   the label's mining time;
+   rows of ``results/bench/BENCH_baseline_quick.json``; three MITHRIL
+   labels (``PARITY_PROFILED``) are swept again, which must capture
+   nothing and give the same bits, under ``torch.profiler``, whose
+   device time of the mining kernel is the label's mining time;
 4. real size — the paper's deployment: the full 135-trace corpus
    (22.5k-50k requests per trace), the paper's MITHRIL tables and a
    65,536-block cache with 16 ways, ``mithril-lru`` in one sweep of 135
@@ -58,6 +58,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    family, are run again on the CPU through the plain versions (in a
    child process, meanwhile) and must give equal ``Stats`` (the child
    starts with the script);
+4b. paper mining — the same deployment where MITHRIL mines: 135 traces
+   ``looping(PAPER_LEN, loop_len=18_000, n_loops=4, seed=s)``, s = 1 to
+   135 (72,000 blocks a trace against the 65,536-block cache), in one
+   group through ``sweep_scheduled`` and the runner; every lane must
+   mine and issue prefetches; plain LRU on the same traces; seeds 1 and
+   2 again on the CPU through the plain versions (a child started with
+   the script): equal ``Stats`` and mining runs (at least two each);
+   then, from the state the sweep left, the traces' next requests as
+   eager steps and as replays across mining barriers (every leaf and hit
+   equal, lanes must mine) and a profiled window: the device time of a
+   barrier where a lane mines, and the mining kernel's share;
 5. streaming — ``sweep_streaming``: (a) ``benchmarks/serving_bench.py``'s
    ``pipeline_quick`` job, sync then async, every deterministic field
    equal to the ``streaming`` rows of ``BENCH_baseline_quick.json`` and
@@ -73,11 +84,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (arms, labels, hit ratios, means, decision CRC, graphs captured)
    equal to the ``learned`` rows of ``BENCH_baseline_quick.json``; both
    again, which must capture nothing and give the same bits; (b) the
-   135-trace corpus at 4,000 requests a trace (the bench's 50,000 cut by
+   135-trace corpus at 2,000 requests a trace (the bench's 50,000 cut by
    the script's time limit) exported with ``traces.io.write_corpus_dir``
    and loaded back through ``RealCorpus`` (fingerprint and padded matrix
    equal to the synthetic suite's), both searchers at 135 lanes: the 16
-   quick traces' hill-climb arms and hit ratios equal to (a)'s, every
+   quick traces' hill-climb arms and hit ratios equal to a hill-climb
+   of those 16 alone at the same length, every
    committed hit ratio at least its static one, every arm on the grid,
    the bandit's decisions equal on a repeat, and each committed arm's
    hit ratios equal to a plain ``sweep`` of its config over the lanes
@@ -100,19 +112,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
    it) once per mining run, and the line gives the host time of a mining
    run and of a miss outside mining;
 8. model — the model substrate (``models.lm``, ``launch.serve``):
-   (a) ``reduced_config`` llama3.2-3b and qwen2-moe-a2.7b (weights from
-   the CPU generator of seed 0), prefill then 4 teacher-forced decode
-   steps on the card, logits within rtol = atol = 5e-2 of a CPU run in a
-   child process (started after the parity phase); (b) llama3.2-3b at its
-   published widths (28 layers, d 3,072, 24 / 8 heads, d_ff 8,192, vocab
-   128,256, tied; weights from a seeded card generator) through
-   ``ServeLoop`` with ``launch.serve.main``'s defaults (4 requests x
-   32-token prompts x 16 decode steps): prefill seconds a request,
+   (a) ``reduced_config`` llama3.2-3b, qwen2-moe-a2.7b,
+   recurrentgemma-9b, rwkv6-1.6b and whisper-medium (weights from the
+   CPU generator of seed 0; whisper with seeded frames), 24-token
+   prefills (RWKV also 32: its chunked form; 24 takes the sequential
+   one) then 4 teacher-forced decode steps on the card, logits within
+   rtol = atol = 5e-2 of a CPU run in a child process (started after
+   the parity phase); (b) llama3.2-3b, recurrentgemma-9b, rwkv6-1.6b and
+   whisper-medium at their published widths (weights from a seeded card
+   generator; each freed before the next) with ``launch.serve.main``'s
+   defaults (4 requests x 32-token prompts x 16 decode steps), through
+   ``ServeLoop`` (whisper, whose prefill takes 1,500 seeded frames,
+   through ``prefill`` / ``decode_step``): prefill seconds a request,
    decode ms a token (p50, p99), tok/s, peak device memory, the
    weights-read-once bound, kernels and device time a token from a
-   profiled window; every logit finite; its depth-cut twin (the
-   embedding and first 2 layers) on the card and copied to the CPU
-   agree within the same tolerance; (c) ``benchmarks/expert_prefetch.py``'s
+   profiled window; every logit finite; each one's depth-cut twins (the
+   embedding, head and first 2 layers; whisper's with 2 encoder
+   layers; recurrentgemma's first (rglru, rglru, local) unit as two
+   twins, ``TWIN_SPANS``) on the card and copied to the CPU agree within
+   the same tolerance; (c) ``benchmarks/expert_prefetch.py``'s
    path: the expert access stream captured from the MoE routers of a
    reduced qwen2-moe (16 experts, top 4, 8 layers, 6 tenants' 2 x 64
    tokens) on the card, then ``simulate`` with LRU and MITHRIL-LRU
@@ -126,7 +144,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 A captured graph calls no Python at replay, so the runner counts each
 graph's launches at its capture and adds them at every replay: the
-counters stay the launches the card ran. The main path is phases 3-8:
+counters stay the launches the card ran. The main path is phases 3-8
+(4b's windows after its main sweep do not count):
 the launch counters are zeroed just before the parity sweeps and read
 after each of the later phases' main runs (the learned phase's searches
 launch the record kernel and the mining run); the
@@ -138,7 +157,8 @@ of the TPU kernels' own contract, are held and timed in phase 2; the
 ``kernels`` line gives the launches of each phase.
 (At the paper's sizes the 50k request traces never fill the
 65,536-block cache, so the real-size sweep records every miss but never
-mines; its barrier launches the mining run with no lane to mine.)
+mines; its barrier launches the mining run with no lane to mine. The
+paper-mining phase's loops overflow the cache, and there it mines.)
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -1392,6 +1412,10 @@ def pf_src_of(cfg) -> int:
 
 # the parity sweeps run in three processes that drive the card at once
 # (each sweep is host-bound); each group takes about a third of the time
+# the MITHRIL labels swept again under the profiler for the mining time
+# and the repeat check; mithril-amp-lru, whose AMP steps make the largest
+# trace, is swept once (its repeat set the parity phase's wall time)
+PARITY_PROFILED = ("mithril-lru", "mithril-fifo", "learned-mithril-lru")
 PARITY_GROUPS = (("mithril-amp-lru", "lru", "fifo"),
                  ("amp-lru", "mithril-lru", "learned-lru"),
                  ("pg-lru", "mithril-fifo", "learned-mithril-lru"))
@@ -1401,10 +1425,10 @@ def parity_labels(dev, labels, n_requests: int = PARITY_LEN) -> dict:
     """Sweep the quick corpus through ``labels`` in this process and hold
     each label's rounded hit ratios and mean precision against the
     baseline row. Each sweep replays captured graphs, so no Python runs
-    inside a mining run: a MITHRIL label is swept a second time (a repeat
-    at the same geometry, which must capture nothing) under
-    ``torch.profiler``, whose device time of the mining kernel over the
-    sweep is the label's mining time. Returns the results, launch counts
+    inside a mining run: each PARITY_PROFILED label is swept a second
+    time (a repeat at the same geometry, which must capture nothing)
+    under ``torch.profiler``, whose device time of the mining kernel
+    over the sweep is the label's mining time. Returns the results, launch counts
     (of the first sweeps) and mining times."""
     import numpy as np
     import torch
@@ -1444,7 +1468,7 @@ def parity_labels(dev, labels, n_requests: int = PARITY_LEN) -> dict:
         totals["sweep_seconds"] += seconds
         totals["compiles"] += res.compiles
         totals["capture_seconds"] += runner.capture_seconds
-        if cfg.use_mithril:
+        if label in PARITY_PROFILED:
             counts = ops.launch_counts()
             lanes_mined = int(runner.carry(len(names))["mith"].n_mines.sum())
             torch.cuda.synchronize()
@@ -1770,6 +1794,280 @@ def phase_real(dev, child: subprocess.Popen, n_requests: int = REAL_LEN):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the paper's deployment where MITHRIL mines
+# ---------------------------------------------------------------------------
+
+# looping(N, loop_len=18_000, n_loops=4, seed=s), s = 1..135: 72,000
+# blocks a trace against the 65,536-block cache, so every block misses
+# again each pass. A lane first fills its 1,024 mining rows after about
+# 218,000 requests (the 4th miss of its blocks) and then mines about
+# every 2,400 until its 4th pass ends; the pairs it mined recur only in
+# the next pass, so the first prefetch comes near request 287,000. The
+# sweep runs 300,000 requests: the first 240,000 through
+# ``sweep_scheduled``, the rest through the same runner and carry, where
+# the replay-vs-eager and the profiled windows lie while lanes mine.
+PAPER_LOOPS = dict(loop_len=18_000, n_loops=4)
+PAPER_SEEDS = tuple(range(1, 136))
+PAPER_LEN = 300_000
+PAPER_SPLIT = 240_000
+PAPER_CHILD_SEEDS = (1, 2)    # the lanes held against the CPU child
+PAPER_WINDOW = 1_280          # replay vs eager: about 70 mining runs
+PAPER_PROFILE = 1_024         # the profiled window after it
+
+
+def paper_traces(n_requests: int, seeds=None):
+    """The looping traces of ``seeds`` (default PAPER_SEEDS), (S, n)."""
+    import numpy as np
+    from repro_torch.traces.synthetic import looping
+    return np.stack([looping(n_requests, seed=s, **PAPER_LOOPS)
+                     for s in (PAPER_SEEDS if seeds is None else seeds)])
+
+
+def paper_cross_check_child() -> None:
+    """Child process: the PAPER_CHILD_SEEDS lanes of the paper-mining
+    sweep on the CPU through the plain versions; prints their Stats and
+    mining runs as JSON."""
+    import torch
+    from repro_torch.cache import chunk_runner, sweep_scheduled
+    torch.set_num_threads(2)
+    cfg = real_config()
+    blocks = paper_traces(PAPER_LEN, PAPER_CHILD_SEEDS)
+    res = sweep_scheduled(cfg, blocks, device="cpu")
+    mines = chunk_runner(cfg, device="cpu").carry(len(blocks))["mith"]
+    print(json.dumps({"seeds": list(PAPER_CHILD_SEEDS),
+                      "stats": {k: v.tolist() for k, v in
+                                res.stats._asdict().items()},
+                      "n_mines": mines.n_mines.tolist(),
+                      "seconds": res.seconds}), flush=True)
+
+
+def start_paper_cross_check() -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--paper-cross-check"], stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES=""))
+
+
+def advance(runner, carry, blocks, dev):
+    """``blocks`` (W, T), every request valid, through the runner's
+    replays from ``carry`` (its static carry at width W) in place;
+    returns the hits (T, W) on the card."""
+    import numpy as np
+    import torch
+    xs = torch.as_tensor(np.ascontiguousarray(blocks.T), device=dev)
+    valid = torch.ones(xs.shape, dtype=torch.bool, device=dev)
+    return runner.run(carry, xs, valid, np.ones(xs.shape[0], bool))
+
+
+def paper_replay_equals_eager(cfg, runner, blocks, dev) -> dict:
+    """From the runner's carry at width W, the next requests ``blocks``
+    (W, T) twice: the eager loop over ``build_batched_step``'s step on a
+    copy of the carry (its launches are not counted), and the runner's
+    replays, which advance the carry; every carry leaf and hit must be
+    equal, and lanes must have mined inside the window."""
+    import numpy as np
+    import torch
+    from repro_torch.cache import build_batched_step
+    from repro_torch.cache.sweep import _assign, _leaves
+    from repro_torch.kernels import ops
+    lanes = blocks.shape[0]
+    carry = runner.carry(lanes)
+    mines0 = carry["mith"].n_mines.clone()
+    init, step = build_batched_step(cfg, dev)
+    eager = init(lanes)
+    _assign(eager, carry)
+    xs = torch.as_tensor(np.ascontiguousarray(blocks.T), device=dev)
+    valid = torch.ones(lanes, dtype=torch.bool, device=dev)
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hits = torch.stack([step(eager, xs[i], valid)[1]
+                        for i in range(xs.shape[0])])
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t
+    ops.set_launch_counts(counts)
+    t = time.perf_counter()
+    replayed = advance(runner, carry, blocks, dev)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t
+    got, want = _leaves(carry), _leaves(eager)
+    leaves = sum(bool(torch.equal(x, y)) for x, y in zip(got, want))
+    mined = carry["mith"].n_mines - mines0
+    info = {"steps": int(xs.shape[0]), "lanes": lanes,
+            "equal": leaves == len(got) and bool(torch.equal(hits, replayed)),
+            "leaves_equal": f"{leaves}/{len(got)}",
+            "mining_runs": int(mined.sum()),
+            "lanes_mined": int((mined > 0).sum()),
+            "eager_ms_per_step": eager_s / xs.shape[0] * 1e3,
+            "runner_seconds": replay_s,
+            "runner_ms_per_step": replay_s / xs.shape[0] * 1e3}
+    del eager, hits
+    return info
+
+
+def kernel_times(prof, sub: str) -> list:
+    """Device microseconds of each launch of the kernels whose name
+    contains ``sub`` in a ``torch.profiler`` trace."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(ev.duration_ns() / 1e3 if hasattr(ev, "duration_ns")
+             else ev.duration_us())
+            for ev in prof.profiler.kineto_results.events()
+            if ev.device_type() == cuda and sub in ev.name()]
+
+
+def paper_profile(runner, blocks, dev, floor: float) -> dict:
+    """The traces' next PAPER_PROFILE requests through the runner under
+    ``torch.profiler``: the mining kernel's device time and its share of
+    the window's wall time (PERF.md §2, "mining share"), the launches
+    that mined (longer than 10 launch floors; a barrier where no lane
+    mines takes about one) and their mean device time, the device idle
+    share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    lanes = blocks.shape[0]
+    carry = runner.carry(lanes)
+    mines0 = carry["mith"].n_mines.clone()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        advance(runner, carry, blocks, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    mine = kernel_times(prof, "mine_step_kernel")
+    mined = [us for us in mine if us > 10 * floor * 1e3]
+    busy = sum(t for _, t, _ in trace_kernels(prof, copies=True)) / 1e6
+    return {"steps": int(blocks.shape[1]), "wall_seconds": wall,
+            "ms_per_step": wall / blocks.shape[1] * 1e3,
+            "mining_kernels": len(mine),
+            "mining_device_seconds": sum(mine) / 1e6,
+            "mining_share": sum(mine) / 1e6 / wall,
+            "launches_that_mined": len(mined),
+            "mined_device_ms_mean": (sum(mined) / len(mined) / 1e3
+                                     if mined else None),
+            "mined_device_ms_max": max(mined) / 1e3 if mined else None,
+            "barrier_device_ms_median": (statistics.median(mine) / 1e3
+                                         if mine else None),
+            "mining_runs": int((carry["mith"].n_mines - mines0).sum()),
+            "device_busy_seconds": busy,
+            "device_idle_share": 1.0 - busy / wall}
+
+
+def phase_paper(dev, child: subprocess.Popen, floor: float) -> dict:
+    """The paper's deployment (``real_config``: PAPER_MITHRIL, 65,536
+    blocks, 16 ways, mithril-lru) over 135 looping traces of PAPER_LEN
+    requests that overflow the cache, as one group of 135 lanes: the
+    first PAPER_SPLIT requests through ``sweep_scheduled``; the rest
+    through the same captured runner from the carry it left, first the
+    replay-vs-eager window and the profiled window (while lanes mine),
+    then the remaining requests. Every lane must mine and issue
+    prefetches; plain LRU on the same traces; the CPU child's lanes
+    equal. Returns the launch counts of the sweep (its windows' replays
+    included, the eager copy's launches not)."""
+    import numpy as np
+    import torch
+    from repro_torch.cache import (PF_MITHRIL, SimConfig, Stats,
+                                   chunk_runner, sweep_scheduled)
+    from repro_torch.convert import to_numpy
+    from repro_torch.kernels import ops
+    t_phase = time.time()
+    t0 = time.time()
+    blocks = paper_traces(PAPER_LEN)
+    t_gen = time.time() - t0
+    head, tail = blocks[:, :PAPER_SPLIT], blocks[:, PAPER_SPLIT:]
+    lanes = len(blocks)
+    cfg = real_config()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    res = sweep_scheduled(cfg, head, device=dev)
+    runner = chunk_runner(cfg, device=dev)
+    carry = runner.carry(lanes)
+    mines_split = carry["mith"].n_mines.cpu().numpy()
+    replay = paper_replay_equals_eager(cfg, runner, tail[:, :PAPER_WINDOW],
+                                       dev)
+    rest = tail[:, PAPER_WINDOW:]
+    prof = paper_profile(runner, rest[:, :PAPER_PROFILE], dev, floor)
+    t0 = time.perf_counter()
+    advance(runner, carry, rest[:, PAPER_PROFILE:], dev)
+    torch.cuda.synchronize()
+    rest_s = time.perf_counter() - t0
+    counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    peak = int(torch.cuda.max_memory_allocated())
+    stats = Stats(*to_numpy(carry["stats"]))
+    n_mines = carry["mith"].n_mines.cpu().numpy()
+    seconds = (res.seconds + replay["runner_seconds"] + prof["wall_seconds"]
+               + rest_s)
+    lru = sweep_scheduled(SimConfig(capacity=cfg.capacity, ways=cfg.ways,
+                                    policy="lru"), blocks, device=dev)
+    issued = stats.pf_issued[:, PF_MITHRIL]
+    used = stats.pf_used[:, PF_MITHRIL]
+    hr = stats.hits / stats.requests
+    lru_hr = lru.hit_ratios()
+    info = {"phase": "paper_mining", "traces": lanes,
+            "trace": dict(PAPER_LOOPS, seeds=[PAPER_SEEDS[0],
+                                              PAPER_SEEDS[-1]]),
+            "requests": int(blocks.size), "steps": PAPER_LEN,
+            "steps_through_sweep_scheduled": PAPER_SPLIT,
+            "lane_width": lanes, "seconds": seconds,
+            "ms_per_step": seconds / PAPER_LEN * 1e3,
+            "ms_per_step_sweep_scheduled": res.seconds / PAPER_SPLIT * 1e3,
+            "requests_per_s": blocks.size / seconds,
+            "compiles": res.compiles,
+            "hit_ratio_mean": float(hr.mean()),
+            "lru_hit_ratio_mean": float(lru_hr.mean()),
+            "hit_ratio_gain_min_max": [float((hr - lru_hr).min()),
+                                       float((hr - lru_hr).max())],
+            "lru_seconds": lru.seconds,
+            "lanes_better_than_lru": int((hr > lru_hr).sum()),
+            "prefetch_issued": int(issued.sum()),
+            "prefetch_used": int(used.sum()),
+            "prefetch_precision": float(used.sum() / max(issued.sum(), 1)),
+            "mining_runs": int(n_mines.sum()),
+            "mining_runs_per_lane": [int(n_mines.min()),
+                                     int(n_mines.max())],
+            "mining_runs_by_split": int(mines_split.sum()),
+            "lanes_mined": int((n_mines > 0).sum()),
+            "lanes_prefetched": int((issued > 0).sum()),
+            "max_memory_allocated": peak, "launches": counts,
+            "trace_gen_seconds": t_gen, "replay_vs_eager": replay,
+            "profile": prof}
+    out, _ = child.communicate(timeout=1200)
+    if child.returncode != 0:
+        emit(info)
+        fail("paper mining: CPU cross-check process failed")
+    cpu = json.loads(out.strip().splitlines()[-1])
+    idx = [PAPER_SEEDS.index(s) for s in cpu["seeds"]]
+    bad = [f for f, want in cpu["stats"].items()
+           if getattr(stats, f)[idx].tolist() != want]
+    if n_mines[idx].tolist() != cpu["n_mines"]:
+        bad.append("n_mines")
+    info["cpu_cross_check"] = {"seeds": cpu["seeds"], "equal": not bad,
+                               "n_mines": cpu["n_mines"],
+                               "seconds": cpu["seconds"]}
+    info["seconds_phase"] = time.time() - t_phase
+    emit(info)
+    if bad:
+        fail(f"paper mining: the CPU cross-check differs in {bad}")
+    idle = [PAPER_SEEDS[i] for i in
+            np.flatnonzero((n_mines == 0) | (issued == 0))]
+    if idle or min(cpu["n_mines"]) < 2:
+        fail(f"paper mining: lanes of seeds {idle} did not mine or issue a "
+             f"prefetch, or a cross-checked lane mined fewer than twice")
+    if not (replay["equal"] and replay["mining_runs"] > 0):
+        fail(f"paper mining: the replays differ from the eager steps "
+             f"across mining barriers ({replay})")
+    if not (prof["mining_runs"] > 0 and prof["launches_that_mined"] > 0):
+        fail(f"paper mining: the profiled window saw no mining run {prof}")
+    if counts["mithril_record"] < PAPER_LEN or \
+            counts["mithril_mine_step"] < PAPER_LEN:
+        fail(f"paper mining: the replays did not count a record launch and "
+             f"a mining run a step: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the streaming engine
 # ---------------------------------------------------------------------------
 
@@ -1897,6 +2195,9 @@ TOP_K = 4
 # the adaptive bench's quick length, and the depth of the full-width run
 # (of its 50,000 requests: the script's 1,200 s limit cuts it)
 LEARNED_LEN = 4_000
+# (b)'s traces: cut from LEARNED_LEN to stay inside the script's limit
+# once the paper-mining phase came (PERF.md §4)
+LEARNED_FULL_LEN = 2_000
 ADAPT_KEYS = ("episodes", "arms", "labels", "hit_ratios", "base_hit_ratios",
               "hit_ratio_mean", "base_hit_ratio_mean", "decisions_crc",
               "compiles")
@@ -1995,23 +2296,25 @@ def learned_quick(dev) -> dict:
             "base_hit_ratio_mean": got["base_hit_ratio_mean"]}
     return {"traces": len(names), "requests": int(lengths.sum()),
             "corpus_crc32": crc, "capture_seconds": capture_s,
-            "rows": out, "results": {k: v[0] for k, v in first.items()},
-            "names": list(names)}
+            "rows": out}
 
 
-def learned_full(dev, quick: dict) -> dict:
-    """(b) the 135-trace corpus at LEARNED_LEN exported with
+def learned_full(dev) -> dict:
+    """(b) the 135-trace corpus at LEARNED_FULL_LEN exported with
     write_corpus_dir and loaded back through RealCorpus, then both
-    searchers at 135 lanes and the bandit again."""
+    searchers at 135 lanes and the bandit again; hill-climb over the
+    16 quick traces alone at that length, whose arms and hit ratios the
+    135-lane search must give them."""
     import tempfile
     import numpy as np
     import torch
     from repro_torch.cache import sweep
-    from repro_torch.learn.adapt import DEFAULT_CHUNK, SearchGrid, bandit
+    from repro_torch.learn.adapt import (DEFAULT_CHUNK, SearchGrid, bandit,
+                                         hill_climb)
     from repro_torch.traces import (RealCorpus, corpus_fingerprint,
                                     corpus_suite, family_of,
                                     write_corpus_dir)
-    names, blocks, lengths = corpus_suite("full", LEARNED_LEN)
+    names, blocks, lengths = corpus_suite("full", LEARNED_FULL_LEN)
     traces = {n: blocks[i, : lengths[i]] for i, n in enumerate(names)}
     with tempfile.TemporaryDirectory() as d:
         write_corpus_dir(d, traces, {n: family_of(n) for n in names})
@@ -2037,10 +2340,14 @@ def learned_full(dev, quick: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     capture_s = runner_capture_seconds(base, dev) - cap0
     # the 16 quick traces: hill-climb decides each trace from its own
-    # lane, so their arms and hit ratios are row (a)'s
+    # lane, so their arms and hit ratios are those of a search of them
+    # alone
     hill = res["hill-climb"][0]
-    qhill = quick["results"]["hill-climb"]
-    idx = [list(r_names).index(n) for n in quick["names"]]
+    q_names, q_blocks, q_lengths = corpus_suite("quick", LEARNED_FULL_LEN)
+    t1 = time.time()
+    qhill = hill_climb(base, q_blocks, q_lengths, grid, device=dev)
+    quick_s = time.time() - t1
+    idx = [list(r_names).index(n) for n in q_names]
     quick_equal = ([hill.arms[i] for i in idx] == list(qhill.arms)
                    and np.array_equal(hill.hit_ratios[idx],
                                       qhill.hit_ratios)
@@ -2084,10 +2391,12 @@ def learned_full(dev, quick: dict) -> dict:
     return {"traces": len(names), "requests": int(lengths.sum()),
             "requests_min": int(lengths.min()),
             "requests_max": int(lengths.max()),
-            "depth_cut": f"{LEARNED_LEN} of the adaptive bench's 50000 "
-                         f"requests a trace (the script's time limit)",
+            "depth_cut": f"{LEARNED_FULL_LEN} of the adaptive bench's "
+                         f"50000 requests a trace (the script's time "
+                         f"limit)",
             "fingerprint": fingerprint, "ingest_equal": ingest_equal,
-            "quick_traces_equal_row_a": quick_equal,
+            "quick_traces_equal_alone": quick_equal,
+            "quick_alone_seconds": quick_s,
             "committed_arms_equal_plain_sweep": arms_equal,
             "arm_check_sweeps": len(by_arm), "arm_check_seconds": check_s,
             "capture_seconds": capture_s, "max_memory_allocated": int(peak),
@@ -2139,12 +2448,11 @@ def phase_learned(dev) -> dict:
     before = ops.launch_counts()
     t0 = time.time()
     quick = learned_quick(dev)
-    full = learned_full(dev, quick)
+    full = learned_full(dev)
     counts = {k: v - before[k] for k, v in ops.launch_counts().items()}
     training = learned_training(dev)
     info = {"phase": "learned",
-            "quick": {k: v for k, v in quick.items()
-                      if k not in ("results", "names")},
+            "quick": quick,
             "full": full, "training": training, "launches": counts,
             "seconds": time.time() - t0}
     emit(info)
@@ -2156,7 +2464,7 @@ def phase_learned(dev) -> dict:
         fail(f"learned: {bad} differ from the adaptive_quick rows, or a "
              f"repeat captured again or differed")
     checks = {"ingest_equal": full["ingest_equal"],
-              "quick_traces_equal_row_a": full["quick_traces_equal_row_a"],
+              "quick_traces_equal_alone": full["quick_traces_equal_alone"],
               "committed_arms_equal_plain_sweep":
                   full["committed_arms_equal_plain_sweep"],
               "bandit_repeat_equal": full["rows"]["bandit"]["repeat_equal"],
@@ -2536,26 +2844,57 @@ def phase_serving(dev, child: subprocess.Popen) -> dict:
 # ---------------------------------------------------------------------------
 
 MODEL_TOL = 5e-2              # rtol = atol: tests/test_torch_lm.py's
-MODEL_REDUCED = ("llama3.2-3b", "qwen2-moe-a2.7b")
+MODEL_REDUCED = ("llama3.2-3b", "qwen2-moe-a2.7b", "recurrentgemma-9b",
+                 "rwkv6-1.6b", "whisper-medium")
 MODEL_PROMPT, MODEL_DECODE = 24, 4    # prefill, then teacher-forced steps
-SERVE_ARCH = "llama3.2-3b"
+# the reduced runs: each arch at MODEL_PROMPT (RWKV's sequential prefill:
+# 24 is not a multiple of 32), and RWKV again at 32 (its chunked form)
+REDUCED_RUNS = tuple((a, MODEL_PROMPT) for a in MODEL_REDUCED) + (
+    ("rwkv6-1.6b", 32),)
+SERVE_ARCHS = ("llama3.2-3b", "recurrentgemma-9b", "rwkv6-1.6b",
+               "whisper-medium")
 SERVE_ARGS = dict(requests=4, prompt_len=32, decode_steps=16)  # main's
-TWIN_LAYERS = 2
+# the depth-cut twins, as spans of the full model's layers: llama and
+# RWKV its first 2 layers, whisper 2 decoder and 2 encoder layers;
+# recurrentgemma its first (rglru, rglru, local) unit as two twins, the
+# two RG-LRU layers and the local-attention layer alone: card and CPU
+# drift apart by bf16 rounding at every layer (``tools/twin_drift.py``:
+# on an H100 the largest logit difference of its twins grew 0.031,
+# 0.048, 0.059 with 1, 2, 3 layers), and 3 layers at d 4,096 and a
+# 256,000 vocabulary put a few of 1.28 million logits past the tolerance
+TWIN_SPANS = {"llama3.2-3b": ((0, 2),), "recurrentgemma-9b": ((0, 2), (2, 3)),
+              "rwkv6-1.6b": ((0, 2),), "whisper-medium": ((0, 2),)}
 # benchmarks/expert_prefetch.py's geometry
 EXPERT = dict(n_experts=16, top_k=4, n_layers=8, tenants=6, batch=(2, 64),
               capacity=48, lookahead=40, min_support=2)
 
 
-def teacher_forced(cfg, model, tokens, dev) -> list:
+def model_frames(cfg, batch: int, seed: int):
+    """Stub encoder frames (the whisper frontend's embeddings) from a
+    seed, bf16 numpy-made, the same bits in every process; None unless
+    the model is an encoder-decoder."""
+    import numpy as np
+    import torch
+    if not cfg.is_encoder_decoder:
+        return None
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(
+        (batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+                            ).bfloat16()
+
+
+def teacher_forced(cfg, model, tokens, dev, frames=None) -> list:
     """Prefill ``tokens[:, :-MODEL_DECODE]`` (cache padded for the
-    steps), then decode the remaining tokens one at a time; the logits
-    of each call as float32 numpy."""
+    steps; ``frames`` for an encoder-decoder), then decode the remaining
+    tokens one at a time; the logits of each call as float32 numpy."""
     import torch
     from repro_torch.models import lm
     tokens = torch.as_tensor(tokens, device=dev)
     s = tokens.shape[1] - MODEL_DECODE
-    logits, cache = lm.prefill(cfg, model, {"tokens": tokens[:, :s]},
-                               pad_to=tokens.shape[1] + 8)
+    batch = {"tokens": tokens[:, :s]}
+    if frames is not None:
+        batch["frames"] = frames.to(dev)
+    logits, cache = lm.prefill(cfg, model, batch, pad_to=tokens.shape[1] + 8)
     out = [logits]
     for i in range(MODEL_DECODE):
         pos = torch.full((tokens.shape[0],), s + i, dtype=torch.int32,
@@ -2566,9 +2905,10 @@ def teacher_forced(cfg, model, tokens, dev) -> list:
     return [t.float().cpu().numpy() for t in out]
 
 
-def reduced_model(arch: str, dev):
+def reduced_model(arch: str, dev, prompt: int = MODEL_PROMPT):
     """``reduced_config(arch)`` with weights from the CPU generator of
-    seed 0 (the same bits in every process), on ``dev``; and its tokens."""
+    seed 0 (the same bits in every process), on ``dev``; its tokens and
+    (encoder-decoder) frames."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config, reduced_config
@@ -2577,8 +2917,18 @@ def reduced_model(arch: str, dev):
     model = lm.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu").to(dev)
     tokens = np.random.default_rng(1).integers(
-        0, cfg.vocab, (2, MODEL_PROMPT + MODEL_DECODE)).astype(np.int64)
-    return cfg, model, tokens
+        0, cfg.vocab, (2, prompt + MODEL_DECODE)).astype(np.int64)
+    return cfg, model, tokens, model_frames(cfg, 2, 3)
+
+
+def reduced_logits(dev) -> dict:
+    """Every REDUCED_RUNS run's teacher-forced logits on ``dev``."""
+    out = {}
+    for arch, prompt in REDUCED_RUNS:
+        cfg, model, tokens, frames = reduced_model(arch, dev, prompt)
+        out[f"{arch}@{prompt}"] = teacher_forced(cfg, model, tokens, dev,
+                                                 frames)
+    return out
 
 
 def expert_setup(dev):
@@ -2625,11 +2975,8 @@ def model_cross_check_child() -> None:
     from repro_torch.traces.capture import capture_expert_trace
     torch.set_num_threads(2)
     t0 = time.time()
-    out = {"reduced": {}}
-    for arch in MODEL_REDUCED:
-        cfg, model, tokens = reduced_model(arch, "cpu")
-        out["reduced"][arch] = [a.tolist() for a in teacher_forced(
-            cfg, model, tokens, "cpu")]
+    out = {"reduced": {k: [a.tolist() for a in v]
+                       for k, v in reduced_logits("cpu").items()}}
     cfg, model, batches = expert_setup("cpu")
     trace = capture_expert_trace(cfg, model, batches)
     out["trace"] = trace.tolist()
@@ -2659,18 +3006,66 @@ def logits_err(got, want) -> dict:
                                       <= MODEL_TOL * (1 + np.abs(want))))}
 
 
-def serve_full_width(dev) -> tuple:
-    """llama3.2-3b at its published widths through ``ServeLoop``: weights
-    from a seeded card generator, ``launch.serve.main``'s defaults
-    (4 requests x 32-token prompts x 16 decode steps); every request's
-    prefill and every step timed on the host clock, ending in a
-    synchronise. Returns (line, model)."""
+class EncDecRequests:
+    """The whisper requests driven through ``prefill`` and
+    ``decode_step`` directly, the way ``ServeLoop`` drives a decoder-only
+    model (``ServeLoop.admit`` takes no frames, as the reference's): one
+    prefill a request with its frames, the cache padded to ``max_len``,
+    then a greedy token a step for each request in turn."""
+
+    def __init__(self, cfg, model, *, max_len: int):
+        self.cfg, self.model, self.max_len = cfg, model, max_len
+        self.requests = {}
+        self.stats = {"prefills": 0, "decode_steps": 0, "tokens": 0}
+
+    def admit(self, rid: int, prompt, frames):
+        import torch
+        from repro_torch.models import lm
+        logits, cache = lm.prefill(self.cfg, self.model,
+                                   {"tokens": prompt[None],
+                                    "frames": frames[None]},
+                                   pad_to=self.max_len)
+        self.requests[rid] = {"cache": cache, "logits": logits,
+                              "tok": torch.argmax(logits, -1).to(torch.int32),
+                              "pos": prompt.shape[0]}
+        self.stats["prefills"] += 1
+
+    def step(self):
+        import torch
+        from repro_torch.models import lm
+        for st in self.requests.values():
+            pos = torch.full((1,), st["pos"], dtype=torch.int32,
+                             device=st["tok"].device)
+            logits, st["cache"] = lm.decode_step(self.cfg, self.model,
+                                                 st["cache"], st["tok"], pos)
+            st["tok"] = torch.argmax(logits, -1).to(torch.int32)
+            st["logits"] = logits
+            st["pos"] += 1
+            self.stats["tokens"] += 1
+        self.stats["decode_steps"] += 1
+
+
+def decode_read_bytes(model) -> int:
+    """Bytes a decoded token must read at least: every weight but the
+    encoder's (which only the prefill reads)."""
+    return sum(p.numel() * p.element_size()
+               for name, p in model.named_parameters()
+               if not name.startswith(("enc_layers.", "enc_norm.")))
+
+
+def serve_full_width(dev, arch: str) -> tuple:
+    """``arch`` at its published widths: weights from a seeded card
+    generator, ``launch.serve.main``'s defaults (4 requests x 32-token
+    prompts x 16 decode steps) through ``ServeLoop`` (whisper: through
+    ``prefill`` / ``decode_step``, each request with 1,500 seeded
+    frames); every request's prefill and every step timed on the host
+    clock, ending in a synchronise. Returns (line, model)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import ServeLoop
     from repro_torch.models import lm
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     torch.cuda.synchronize()
     before = int(torch.cuda.memory_allocated())   # earlier phases' state
     torch.cuda.reset_peak_memory_stats()
@@ -2684,17 +3079,24 @@ def serve_full_width(dev) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     n_params = sum(p.numel() for p in model.parameters())
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    read_bytes = decode_read_bytes(model)
     a = SERVE_ARGS
-    loop = ServeLoop(cfg, model,
-                     max_len=a["prompt_len"] + a["decode_steps"] + 8)
+    max_len = a["prompt_len"] + a["decode_steps"] + 8
+    loop = (EncDecRequests(cfg, model, max_len=max_len)
+            if cfg.is_encoder_decoder else ServeLoop(cfg, model,
+                                                     max_len=max_len))
     rng = np.random.default_rng(0)
     finite = torch.ones((), dtype=torch.bool, device=dev)
     prefill_s = []
     for rid in range(a["requests"]):
         prompt = torch.as_tensor(rng.integers(0, cfg.vocab, a["prompt_len"]),
                                  dtype=torch.int32, device=dev)
+        frames = model_frames(cfg, 1, 10 + rid)
         t0 = time.perf_counter()
-        loop.admit(rid, prompt)
+        if frames is None:
+            loop.admit(rid, prompt)
+        else:
+            loop.admit(rid, prompt, frames[0].to(dev))
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t0)
         finite &= torch.isfinite(loop.requests[rid]["logits"]).all()
@@ -2718,20 +3120,24 @@ def serve_full_width(dev) -> tuple:
     kernels = [r for r in rows if not r[0].startswith(("Memcpy", "Memset"))]
     tokens = reps * a["requests"]
     device_ms = sum(t for _, t, _ in rows) / 1e3 / tokens
-    line = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+    p50 = float(np.percentile(per_token_ms, 50))
+    line = {"arch": cfg.name, "layers": cfg.n_layers,
+            "encoder_layers": cfg.n_encoder_layers,
+            "pattern": [list(u) + [r] for u, r in lm.layer_groups(cfg)],
+            "d_model": cfg.d_model,
             "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.head_dim,
             "d_ff": cfg.d_ff, "vocab": cfg.vocab,
             "tied": cfg.tie_embeddings, "params": n_params,
-            "weight_bytes": w_bytes, "init_seconds": init_s,
-            **a, "stats": stats,
+            "weight_bytes": w_bytes, "decode_read_bytes": read_bytes,
+            "init_seconds": init_s, **a, "stats": stats,
             "prefill_seconds": prefill_s,
             "prefill_seconds_p50": statistics.median(prefill_s),
-            "decode_ms_a_token_p50": float(np.percentile(per_token_ms, 50)),
+            "decode_ms_a_token_p50": p50,
             "decode_ms_a_token_p99": float(np.percentile(per_token_ms, 99)),
             "decode_ms_a_token": per_token_ms,
             "tok_s": stats["tokens"] / decode_s,
             "decode_seconds": decode_s,
-            "bound_ms_a_token": w_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms_a_token": read_bytes / HBM_BYTES_PER_S * 1e3,
             "max_memory_allocated": serve_peak,
             "max_memory_allocated_init": init_peak,
             "memory_allocated_before_init": before,
@@ -2739,8 +3145,7 @@ def serve_full_width(dev) -> tuple:
             "serving_peak_over_before": serve_peak - before,
             "kernels_a_token": sum(n for _, _, n in kernels) / tokens,
             "device_ms_a_token": device_ms,
-            "device_idle_share": 1.0 - device_ms / float(
-                np.percentile(per_token_ms, 50)),
+            "device_idle_share": 1.0 - device_ms / p50,
             "top_device_time": [
                 {"kernel": k[:80], "ms_a_token": t / 1e3 / tokens,
                  "launches_a_token": n / tokens}
@@ -2750,18 +3155,31 @@ def serve_full_width(dev) -> tuple:
     return line, model
 
 
-def depth_cut_twin(cfg_full, model, dev) -> dict:
-    """The full-width model's embedding, final norm and first
-    TWIN_LAYERS layers as a model of that depth, on the card and copied
-    to the CPU: teacher-forced logits of both must agree."""
+def depth_cut_twin(cfg_full, model, dev, span) -> dict:
+    """The full-width model's embedding, norms and head with its layers
+    ``span`` = (first, end) (whisper: and its first encoder layers, as
+    many) as a model of that depth, on the card and copied to the CPU:
+    teacher-forced logits of both must agree."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.models import lm
-    cfg = dataclasses.replace(cfg_full, n_layers=TWIN_LAYERS)
-    keep = {k: v for k, v in model.state_dict().items()
-            if not k.startswith("layers.")
-            or int(k.split(".")[1]) < TWIN_LAYERS}
+    first, end = span
+    kinds = cfg_full.pattern[first:end]
+    cfg = dataclasses.replace(
+        cfg_full, n_layers=end - first,
+        layer_pattern=kinds if cfg_full.layer_pattern else (),
+        n_encoder_layers=(end - first if cfg_full.is_encoder_decoder
+                          else 0))
+    keep = {}
+    for k, v in model.state_dict().items():
+        head, _, rest = k.partition(".")
+        if head == "layers":
+            i, _, sub = rest.partition(".")
+            if first <= int(i) < end:
+                keep[f"layers.{int(i) - first}.{sub}"] = v
+        elif head != "enc_layers" or int(rest.split(".")[0]) < end - first:
+            keep[k] = v
     twins = {}
     for name, where in (("card", dev), ("cpu", "cpu")):
         twin = lm.CausalLM(cfg, device="meta")
@@ -2770,24 +3188,29 @@ def depth_cut_twin(cfg_full, model, dev) -> dict:
         twins[name] = twin
     tokens = np.random.default_rng(2).integers(
         0, cfg.vocab, (1, SERVE_ARGS["prompt_len"] + MODEL_DECODE))
+    frames = model_frames(cfg, 1, 4)
     t0 = time.time()
-    card = teacher_forced(cfg, twins["card"], tokens, dev)
-    cpu = teacher_forced(cfg, twins["cpu"], tokens, "cpu")
+    card = teacher_forced(cfg, twins["card"], tokens, dev, frames)
+    cpu = teacher_forced(cfg, twins["cpu"], tokens, "cpu", frames)
     per_call = [logits_err(a, b) for a, b in zip(card, cpu)]
-    return {"layers": TWIN_LAYERS, "calls": len(per_call),
+    return {"layers": [first, end], "kinds": list(kinds),
+            "calls": len(per_call),
             "max_abs_err": max(e["max_abs_err"] for e in per_call),
+            "max_abs_err_by_call": [e["max_abs_err"] for e in per_call],
             "within_tol": all(e["within_tol"] for e in per_call),
             "finite": bool(all(np.isfinite(a).all() for a in card)),
             "seconds": time.time() - t0}
 
 
 def phase_model(dev, child: subprocess.Popen) -> dict:
-    """(a) reduced llama3.2-3b and qwen2-moe on the card against the CPU
-    child; (b) llama3.2-3b at full width through ``ServeLoop``, held by
-    its depth-cut twin; (c) the expert-prefetch path: capture from the
-    MoE routers on the card, then ``simulate`` LRU and MITHRIL-LRU on
-    the card (record kernel, mining run), against the CPU child's trace
-    and ``Stats``. Returns the launch counts of (c)."""
+    """(a) the REDUCED_RUNS models on the card against the CPU child;
+    (b) each of SERVE_ARCHS at full width, held by its depth-cut twin,
+    one after another (each freed before the next); (c) the
+    expert-prefetch path: capture from the MoE routers on the card, then
+    ``simulate`` LRU and MITHRIL-LRU on the card (record kernel, mining
+    run), against the CPU child's trace and ``Stats``. Returns the
+    launch counts of (c)."""
+    import gc
     import numpy as np
     import torch
     from repro_torch.cache import simulate
@@ -2796,16 +3219,18 @@ def phase_model(dev, child: subprocess.Popen) -> dict:
     t_phase = time.time()
     info = {"phase": "model", "tolerance": {"rtol": MODEL_TOL,
                                             "atol": MODEL_TOL},
-            "reduced": {}}
-    card_reduced = {}
-    for arch in MODEL_REDUCED:
-        cfg, model, tokens = reduced_model(arch, dev)
-        card_reduced[arch] = teacher_forced(cfg, model, tokens, dev)
-    line, model = serve_full_width(dev)
-    info["full_width"] = line
-    info["full_width"]["twin"] = depth_cut_twin(model.cfg, model, dev)
-    del model
-    torch.cuda.empty_cache()
+            "reduced": {}, "full_width": {}}
+    card_reduced = reduced_logits(dev)
+    for arch in SERVE_ARCHS:
+        t0 = time.time()
+        line, model = serve_full_width(dev, arch)
+        line["twins"] = [depth_cut_twin(model.cfg, model, dev, span)
+                         for span in TWIN_SPANS[arch]]
+        line["seconds"] = time.time() - t0
+        info["full_width"][arch] = line
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
 
     cfg, model, batches = expert_setup(dev)
     ops.reset_launch_counts()           # (a) and (b) launch none of them
@@ -2836,34 +3261,33 @@ def phase_model(dev, child: subprocess.Popen) -> dict:
         fail("model: CPU cross-check process failed")
     cpu = json.loads(out.strip().splitlines()[-1])
     bad = []
-    for arch in MODEL_REDUCED:
-        errs = [logits_err(a, b) for a, b in
-                zip(card_reduced[arch], cpu["reduced"][arch])]
-        info["reduced"][arch] = {
+    for key, card in card_reduced.items():
+        errs = [logits_err(a, b) for a, b in zip(card, cpu["reduced"][key])]
+        info["reduced"][key] = {
             "calls": len(errs),
             "max_abs_err": max(e["max_abs_err"] for e in errs),
             "within_tol": all(e["within_tol"] for e in errs),
-            "finite": bool(all(np.isfinite(a).all()
-                               for a in card_reduced[arch]))}
-        if not (info["reduced"][arch]["within_tol"]
-                and info["reduced"][arch]["finite"]):
-            bad.append(f"reduced {arch}")
+            "finite": bool(all(np.isfinite(a).all() for a in card))}
+        if not (info["reduced"][key]["within_tol"]
+                and info["reduced"][key]["finite"]):
+            bad.append(f"reduced {key}")
     expert["trace_equal_cpu"] = trace.tolist() == cpu["trace"]
     expert["stats_equal_cpu"] = card_stats == cpu["stats"]
     expert["mining_runs_cpu"] = cpu["mining_runs"]
     info["cpu_seconds"] = cpu["seconds"]
     info["seconds"] = time.time() - t_phase
     emit(info)
-    fw = info["full_width"]
-    if not fw["all_logits_finite"]:
-        bad.append("full width: a logit is not finite")
-    if fw["stats"]["tokens"] != SERVE_ARGS["requests"] * SERVE_ARGS[
-            "decode_steps"] or fw["positions"] != [SERVE_ARGS["prompt_len"]
-                                                   + SERVE_ARGS[
-                                                       "decode_steps"]]:
-        bad.append(f"full width: {fw['stats']} tokens")
-    if not (fw["twin"]["within_tol"] and fw["twin"]["finite"]):
-        bad.append("full width: the depth-cut twin differs from the CPU")
+    want_pos = [SERVE_ARGS["prompt_len"] + SERVE_ARGS["decode_steps"]]
+    for arch, fw in info["full_width"].items():
+        if not fw["all_logits_finite"]:
+            bad.append(f"full width {arch}: a logit is not finite")
+        if fw["stats"]["tokens"] != SERVE_ARGS["requests"] * SERVE_ARGS[
+                "decode_steps"] or fw["positions"] != want_pos:
+            bad.append(f"full width {arch}: {fw['stats']} tokens")
+        for twin in fw["twins"]:
+            if not (twin["within_tol"] and twin["finite"]):
+                bad.append(f"full width {arch}: the depth-cut twin of "
+                           f"layers {twin['layers']} differs from the CPU")
     if not expert["trace_equal_cpu"]:
         bad.append("expert trace differs from the CPU's")
     if not expert["stats_equal_cpu"]:
@@ -2886,6 +3310,10 @@ def main() -> int:
         sys.path.insert(0, str(SRC))
         serving_cross_check_child()
         return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--paper-cross-check":
+        sys.path.insert(0, str(SRC))
+        paper_cross_check_child()
+        return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--model-cross-check":
         sys.path.insert(0, str(SRC))
         model_cross_check_child()
@@ -2907,6 +3335,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     t_start = time.time()
     children = {"real_size": start_cross_check(),
+                "paper_mining": start_paper_cross_check(),
                 "serving": start_serving_cross_check()}
     try:
         return run(children, t_start)
@@ -2948,6 +3377,8 @@ def run(children: dict, t_start: float) -> int:
     # child (about a minute) runs while the card works on
     children["model"] = start_model_cross_check()
     by_path["real_size"], real = phase_real(dev, children["real_size"])
+    by_path["paper_mining"] = phase_paper(dev, children["paper_mining"],
+                                          floor)
     by_path["streaming"] = phase_streaming(dev, real)
     by_path["learned"] = phase_learned(dev)
     by_path["serving"] = phase_serving(dev, children["serving"])

@@ -192,7 +192,10 @@ class ChunkRunner:
 
     On the CPU ``run`` is the eager loop over the step (the plain
     kernels), every row that holds a valid lane, and nothing is
-    captured. One sweep at a time may use a runner.
+    captured. On both devices a runner keeps one carry per lane width,
+    which a sweep resets at its start and leaves as its end state (its
+    MITHRIL state included, ``n_mines`` counting each lane's mining
+    runs). One sweep at a time may use a runner.
     """
 
     def __init__(self, cfg: SimConfig, unroll: int, device: torch.device):
@@ -202,6 +205,7 @@ class ChunkRunner:
         self.cfg, self.unroll, self.device = cfg, int(unroll), device
         self.init_batched, self.step = build_batched_step(cfg, device)
         self.graphs: Dict[int, _Graph] = {}
+        self.carries: Dict[int, dict] = {}       # the CPU's, by width
         self.capture_seconds = 0.0
         self.replays = 0
 
@@ -211,11 +215,13 @@ class ChunkRunner:
         return len(self.graphs)
 
     def carry(self, lanes: int):
-        """The carry that ``run`` advances at this width: on the card the
-        width's static carry (its graph is captured at the first call),
-        on the CPU a fresh one."""
+        """The carry that ``run`` advances at this width, made at the first
+        call (on the card the width's static carry, whose graph is
+        captured then); after a sweep, that sweep's end state."""
         if self.device.type != "cuda":
-            return self.init_batched(lanes)
+            if lanes not in self.carries:
+                self.carries[lanes] = self.init_batched(lanes)
+            return self.carries[lanes]
         if lanes not in self.graphs:
             self.graphs[lanes] = self._capture(lanes)
         return self.graphs[lanes].carry

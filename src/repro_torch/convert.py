@@ -163,18 +163,23 @@ def lm_state_names(cfg) -> Dict[str, Tuple]:
     A path indexes the reference's pytree step by step, a trailing int
     picking a layer's slice of its group's repeats axis:
     ``"layers.3.attn.wq"`` comes from ``("blocks", 0, "u0", "attn", "wq",
-    3)``, ``params["blocks"][0]["u0"]["attn"]["wq"][3]``."""
+    3)``, ``params["blocks"][0]["u0"]["attn"]["wq"][3]``; the encoder's
+    ``"enc_layers.1.ln1.s"`` from ``("enc_blocks", "u0", "ln1", "s", 1)``,
+    and ``"final_norm.b"`` from ``("final_norm", "b")``."""
     from .models.lm import CausalLM, layer_slots
     slots = layer_slots(cfg)
     names = {}
     for name in CausalLM(cfg, device="meta").state_dict():
         head, _, rest = name.partition(".")
-        if head != "layers":
-            names[name] = (name,)
-            continue
-        i, _, sub = rest.partition(".")
-        gi, j, r, _ = slots[int(i)]
-        names[name] = ("blocks", gi, f"u{j}", *sub.split("."), r)
+        if head == "layers":
+            i, _, sub = rest.partition(".")
+            gi, j, r, _ = slots[int(i)]
+            names[name] = ("blocks", gi, f"u{j}", *sub.split("."), r)
+        elif head == "enc_layers":
+            i, _, sub = rest.partition(".")
+            names[name] = ("enc_blocks", "u0", *sub.split("."), int(i))
+        else:
+            names[name] = tuple(name.split("."))
     return names
 
 

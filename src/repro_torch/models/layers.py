@@ -8,10 +8,27 @@ norms and rotary embedding compute in float32 and round once at the end.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Union
 
 import torch
+from torch import nn
+
+
+def weight(shape, device, dtype: torch.dtype = torch.bfloat16
+           ) -> nn.Parameter:
+    """An uninitialised, frozen parameter (the port is forward only)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class Params(nn.Module):
+    """A module of named parameters that also reads as the reference's
+    parameter dict: ``p["w_x"]`` is ``p.w_x``."""
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return getattr(self, name)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
@@ -59,12 +76,30 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return (silu(g) * u) @ w_down
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of GELU (``jax.nn.gelu``'s default) with
+    every step rounded to ``x``'s dtype, its constants included, as the
+    reference computes it: ``x * (0.5 * (1 + tanh(c * (x + 0.044715 *
+    x * (x * x)))))``, ``c = sqrt(2 / pi)``."""
+    cube = x * (x * x)
+    inner = rounded(math.sqrt(2 / math.pi), x.dtype) * (
+        x + rounded(0.044715, x.dtype) * cube)
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+@functools.lru_cache(maxsize=None)
+def rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python number: a constant that
+    multiplies a ``dtype`` tensor as the reference's constant of that
+    dtype does (a bf16 op computes in float32, where the product of two
+    bf16 values is exact)."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
 def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
              w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
-    """GELU MLP with biases (tanh approximation, ``jax.nn.gelu``'s
-    default)."""
-    h = torch.nn.functional.gelu(x @ w_up + b_up, approximate="tanh")
-    return h @ w_down + b_down
+    """GELU MLP with biases (``gelu``)."""
+    return gelu(x @ w_up + b_up) @ w_down + b_down
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

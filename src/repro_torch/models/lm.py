@@ -1,4 +1,5 @@
-"""Causal language model for the attention families (forward only).
+"""Causal language model covering the repository's ten architectures
+(forward only).
 
 One module, ``CausalLM(cfg)``, with one submodule per layer, and plain
 functions under the reference's names:
@@ -9,38 +10,48 @@ functions under the reference's names:
     prefill(cfg, model, batch, pad_to=0)          -> (last_logits, cache)
     decode_step(cfg, model, cache, token, pos)    -> (logits, cache)
 
-Block kinds "attn" (full or sliding-window GQA) and "local" (sliding
+Block kinds: "attn" (full or sliding-window GQA) and "local" (sliding
 window), each with a dense SwiGLU FFN or, when ``cfg.n_experts > 0``,
 the MoE FFN (``models.moe.moe_ffn``; there is no mesh, so no other MoE
-path). Parameters are the reference's, in its layouts ((d, out)
-products, bf16, the MoE router float32); ``convert.lm_params_from``
-carries a reference pytree across. The RG-LRU and RWKV6 blocks and the
-whisper encoder-decoder are not ported yet: building such a model
-raises ``NotImplementedError``.
+path); "rglru" (``models.rglru``, RecurrentGemma) with the dense FFN;
+"rwkv" (``models.rwkv6``: time mix, then channel mix). The
+encoder-decoder (whisper) uses layer norms with a bias, a GELU FFN
+with biases and no rotary embedding; its encoder runs non-causal "attn"
+blocks over the frames (the conv frontend is a stub: frames are
+embeddings), and each decoder block adds a cross-attention sublayer
+over the encoder's keys and values. Parameters are the reference's, in
+its layouts ((d, out) products, bf16, the MoE router, ``lam``, ``u``
+and ``w0`` float32); ``convert.lm_params_from`` carries a reference
+pytree across.
 
-The KV cache has the reference's layout: a list with one entry per
-layer group (``layer_groups``), ``{"u<j>": {"k", "v"}}`` with a leading
-axis over the group's repeats, each (reps, B, S_c, Hkv, hd) bf16.
-``decode_step`` writes the new key and value into the cache's ring slot
-``pos % S_c`` in place and returns the same cache.
+The cache has the reference's layout: a list with one entry per layer
+group (``layer_groups``), ``{"u<j>": entry}`` with a leading axis over
+the group's repeats: ``{"k", "v"}`` (reps, B, S_c, Hkv, hd) bf16 for
+attention, the block's state NamedTuple (``RgState``, ``RwkvState``)
+for the recurrent kinds; the encoder-decoder appends ``{"cross": {"k",
+"v"}}`` (L, B, S_enc, Hkv, hd). ``decode_step`` writes the new key and
+value into the ring slot ``pos % S_c``, and the new recurrent states
+over the old, in place, and returns the same cache.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from . import rglru as rg
+from . import rwkv6 as rk
 from .attention import decode_attention, flash_attention
-from .layers import dense_init, rms_norm, rope, swiglu
+from .layers import (dense_init, gelu_mlp, layer_norm, rms_norm, rope,
+                     sinusoidal_pos, swiglu, weight)
 from .moe import aux_load_balance_loss, moe_ffn
 
 Device = Optional[Union[str, torch.device]]
 ATTN_KINDS = ("attn", "local")
-NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 10, the remaining "
-              "families)")
 
 
 # ---------------------------------------------------------------------------
@@ -72,38 +83,55 @@ def layer_slots(cfg: ModelConfig) -> List[Tuple[int, int, int, str]]:
             for r in range(reps) for j, kind in enumerate(unit)]
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder (whisper) {NOT_PORTED}")
-    for kind in sorted(set(cfg.pattern) - set(ATTN_KINDS)):
-        block = {"rglru": "the RG-LRU block (recurrentgemma)",
-                 "rwkv": "the RWKV6 block"}.get(kind, f"block {kind!r}")
-        raise NotImplementedError(f"{cfg.name}: {block} {NOT_PORTED}")
-
-
 def layer_window(cfg: ModelConfig, kind: str) -> int:
     return cfg.window if (kind == "local" or cfg.attn_kind == "swa") else 0
 
 
-def _weight(shape, device, dtype=torch.bfloat16) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+def use_rope(cfg: ModelConfig) -> bool:
+    return not cfg.is_encoder_decoder
+
+
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """The whisper encoder's stack: ``n_encoder_layers`` "attn" blocks."""
+    return dataclasses.replace(cfg, n_layers=cfg.n_encoder_layers,
+                               layer_pattern=(), n_experts=0)
+
+
+class LayerNorm(nn.Module):
+    """The encoder-decoder's norm: the reference's ``{"s", "b"}``."""
+
+    def __init__(self, d: int, device: Device = None):
+        super().__init__()
+        self.s = weight((d,), device)
+        self.b = weight((d,), device)
+
+
+def _norm_weights(cfg: ModelConfig, device: Device):
+    d = cfg.d_model
+    return LayerNorm(d, device) if cfg.is_encoder_decoder else weight(
+        (d,), device)
+
+
+def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    if cfg.is_encoder_decoder:
+        return layer_norm(x, p.s, p.b, cfg.norm_eps)
+    return rms_norm(x, p, cfg.norm_eps)
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, device: Device = None):
+    def __init__(self, cfg: ModelConfig, device: Device = None,
+                 cross: bool = False):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim
         hq, hkv = cfg.n_heads, cfg.n_kv_heads
-        self.wq = _weight((d, hq * hd), device)
-        self.wk = _weight((d, hkv * hd), device)
-        self.wv = _weight((d, hkv * hd), device)
-        self.wo = _weight((hq * hd, d), device)
-        if cfg.qkv_bias:
-            self.bq = _weight((hq * hd,), device)
-            self.bk = _weight((hkv * hd,), device)
-            self.bv = _weight((hkv * hd,), device)
+        self.wq = weight((d, hq * hd), device)
+        self.wk = weight((d, hkv * hd), device)
+        self.wv = weight((d, hkv * hd), device)
+        self.wo = weight((hq * hd, d), device)
+        if cfg.qkv_bias and not cross:
+            self.bq = weight((hq * hd,), device)
+            self.bk = weight((hkv * hd,), device)
+            self.bv = weight((hkv * hd,), device)
         self.shape = (hq, hkv, hd)
 
     def qkv(self, x: torch.Tensor):
@@ -120,57 +148,98 @@ class DenseMLP(nn.Module):
     def __init__(self, cfg: ModelConfig, device: Device = None):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
-        self.w_gate = _weight((d, f), device)
-        self.w_up = _weight((d, f), device)
-        self.w_down = _weight((f, d), device)
+        self.w_gate = weight((d, f), device)
+        self.w_up = weight((d, f), device)
+        self.w_down = weight((f, d), device)
+
+
+class GeluMLP(nn.Module):
+    """The encoder-decoder's FFN: GELU with biases."""
+
+    def __init__(self, cfg: ModelConfig, device: Device = None):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        self.w_up = weight((d, f), device)
+        self.b_up = weight((f,), device)
+        self.w_down = weight((f, d), device)
+        self.b_down = weight((d,), device)
 
 
 class MoE(nn.Module):
     def __init__(self, cfg: ModelConfig, device: Device = None):
         super().__init__()
         d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
-        self.router = _weight((d, e), device, torch.float32)
-        self.w1 = _weight((e, d, f), device)
-        self.w3 = _weight((e, d, f), device)
-        self.w2 = _weight((e, f, d), device)
+        self.router = weight((d, e), device, torch.float32)
+        self.w1 = weight((e, d, f), device)
+        self.w3 = weight((e, d, f), device)
+        self.w2 = weight((e, f, d), device)
         if cfg.n_shared_experts:
             fs = cfg.moe_d_ff * cfg.n_shared_experts
-            self.shared_w1 = _weight((d, fs), device)
-            self.shared_w3 = _weight((d, fs), device)
-            self.shared_w2 = _weight((fs, d), device)
-            self.shared_gate = _weight((d,), device)
+            self.shared_w1 = weight((d, fs), device)
+            self.shared_w3 = weight((d, fs), device)
+            self.shared_w2 = weight((fs, d), device)
+            self.shared_gate = weight((d,), device)
 
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.named_parameters())
 
 
-class Block(nn.Module):
-    """One "attn" / "local" layer: pre-norm attention and FFN."""
+def _mlp(cfg: ModelConfig, device: Device, routed: bool = True
+         ) -> nn.Module:
+    """The FFN: MoE when ``cfg.n_experts`` (attention blocks only, as in
+    the reference), else GELU (encoder-decoder) or SwiGLU."""
+    if cfg.n_experts and routed:
+        return MoE(cfg, device)
+    return GeluMLP(cfg, device) if cfg.is_encoder_decoder else DenseMLP(
+        cfg, device)
 
-    def __init__(self, cfg: ModelConfig, kind: str, device: Device = None):
+
+class Block(nn.Module):
+    """One layer, pre-norm. "attn" / "local": attention (and, in the
+    decoder of an encoder-decoder, cross-attention) and the FFN;
+    "rglru": the RG-LRU and the dense FFN; "rwkv": time mix and channel
+    mix."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, device: Device = None,
+                 with_cross: bool = False):
         super().__init__()
-        d = cfg.d_model
-        self.ln1 = _weight((d,), device)
-        self.attn = Attention(cfg, device)
-        self.ln2 = _weight((d,), device)
-        self.mlp = MoE(cfg, device) if cfg.n_experts else DenseMLP(cfg,
-                                                                   device)
         self.kind = kind
-        self.window = layer_window(cfg, kind)
+        self.ln1 = _norm_weights(cfg, device)
+        if kind in ATTN_KINDS:
+            self.attn = Attention(cfg, device)
+            self.window = layer_window(cfg, kind)
+            if with_cross:
+                self.ln_x = _norm_weights(cfg, device)
+                self.cross = Attention(cfg, device, cross=True)
+        elif kind == "rglru":
+            self.rg = rg.RgLRU(cfg.d_model, device)
+        elif kind == "rwkv":
+            self.rwkv = rk.Rwkv(cfg.d_model, cfg.d_ff, cfg.rwkv_head_size,
+                                device)
+        else:
+            raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
+        self.ln2 = _norm_weights(cfg, device)
+        if kind != "rwkv":
+            self.mlp = _mlp(cfg, device, routed=kind in ATTN_KINDS)
 
 
 class CausalLM(nn.Module):
     def __init__(self, cfg: ModelConfig, device: Device = None):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
         d, vp = cfg.d_model, cfg.padded_vocab
-        self.embed = _weight((vp, d), device)
-        self.final_norm = _weight((d,), device)
+        self.embed = weight((vp, d), device)
+        self.final_norm = _norm_weights(cfg, device)
         if not cfg.tie_embeddings:
-            self.lm_head = _weight((d, vp), device)
+            self.lm_head = weight((d, vp), device)
         self.layers = nn.ModuleList(
-            Block(cfg, kind, device) for *_, kind in layer_slots(cfg))
+            Block(cfg, kind, device, with_cross=cfg.is_encoder_decoder)
+            for *_, kind in layer_slots(cfg))
+        if cfg.is_encoder_decoder:    # the decoder's FFN kind, as the
+            self.enc_layers = nn.ModuleList(      # reference lays it out
+                Block(cfg, "attn", device)
+                for _ in range(cfg.n_encoder_layers))
+            self.enc_norm = _norm_weights(cfg, device)
 
     def head(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
@@ -180,11 +249,15 @@ class CausalLM(nn.Module):
 # parameter init
 # ---------------------------------------------------------------------------
 
+ZERO_LEAVES = ("ln1", "ln2", "ln_x", "final_norm", "enc_norm", "s", "b",
+               "bq", "bk", "bv", "b_up", "b_down")
+
+
 def _init_axis(name: str, ndim: int) -> Optional[int]:
     """Fan-in axis of a weight, None for the zero-initialised norms and
     biases (as the reference initialises them)."""
     leaf = name.rsplit(".", 1)[-1]
-    if leaf in ("ln1", "ln2", "final_norm", "bq", "bk", "bv"):
+    if leaf in ZERO_LEAVES:
         return None
     if leaf == "embed" or ndim == 3:          # (V, d) and (E, d|f, f|d)
         return 1
@@ -194,18 +267,26 @@ def _init_axis(name: str, ndim: int) -> Optional[int]:
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: Device = None) -> CausalLM:
     """A model with random weights drawn from ``generator`` (which must
-    live on the device), on ``device`` (None: the card)."""
+    live on the device), on ``device`` (None: the card). The recurrent
+    blocks take their reference initialisation (``rglru``, ``rwkv6``)."""
     from ..kernels.backend import resolve_device
     dev = resolve_device(device)
     model = CausalLM(cfg, device=dev)
     with torch.no_grad():
         for name, prm in model.named_parameters():
+            if ".rg." in name or ".rwkv." in name:
+                continue
             axis = _init_axis(name, prm.ndim)
             if axis is None:
                 prm.zero_()
             else:
                 prm.copy_(dense_init(prm.shape, generator, axis,
                                      dtype=prm.dtype, device=dev))
+        for blk in model.layers:
+            if blk.kind == "rglru":
+                rg.init_rglru_params(blk.rg, generator)
+            elif blk.kind == "rwkv":
+                rk.init_rwkv_params(blk.rwkv, generator)
     return model
 
 
@@ -213,13 +294,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # blocks
 # ---------------------------------------------------------------------------
 
-def _attn_sub(cfg, blk: Block, x, positions, mode, cache):
+def _attn_sub(cfg, blk: Block, x, positions, mode, cache, causal=True):
     """Self-attention sublayer. ``cache``: this layer's (k, v) views in
     decode mode. Returns (out, new_cache_entry or None)."""
     b, s, _ = x.shape
     q, k, v = blk.attn.qkv(x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if use_rope(cfg):
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     new_cache = None
     if mode == "decode":
         kc, vc = cache
@@ -231,16 +313,26 @@ def _attn_sub(cfg, blk: Block, x, positions, mode, cache):
         lengths = torch.clamp(positions[:, 0] + 1, max=s_c)
         out = decode_attention(q, kc, vc, lengths)
     else:
-        out = flash_attention(q, k, v, causal=True, window=blk.window)
+        out = flash_attention(q, k, v, causal=causal, window=blk.window)
         if mode == "prefill":
             s_c = min(s, blk.window) if blk.window else s
             new_cache = (k[:, -s_c:], v[:, -s_c:])
     return out.reshape(b, s, -1) @ blk.attn.wo, new_cache
 
 
+def _cross_sub(cfg, p: Attention, x, cross_kv):
+    """Cross-attention (the whisper decoder). cross_kv: this layer's
+    (k, v), each (B, S_enc, Hkv, hd)."""
+    b, s, _ = x.shape
+    hq, _, hd = p.shape
+    q = (x @ p.wq).reshape(b, s, hq, hd)
+    out = flash_attention(q, cross_kv[0], cross_kv[1], causal=False)
+    return out.reshape(b, s, -1) @ p.wo
+
+
 def _ffn_sub(cfg, blk: Block, x, mode):
-    """Dense or MoE FFN. Returns (out, aux_loss: the MoE's load-balancing
-    loss in "train" mode, else None)."""
+    """Dense, GELU or MoE FFN. Returns (out, aux_loss: the MoE's
+    load-balancing loss in "train" mode, else None)."""
     mlp = blk.mlp
     if isinstance(mlp, MoE):
         b, s, d = x.shape
@@ -250,67 +342,146 @@ def _ffn_sub(cfg, blk: Block, x, mode):
         aux = (aux_load_balance_loss(logits, idx, cfg.n_experts)
                if mode == "train" else None)
         return out.reshape(b, s, d), aux
+    if isinstance(mlp, GeluMLP):
+        return gelu_mlp(x, mlp.w_up, mlp.b_up, mlp.w_down, mlp.b_down), None
     return swiglu(x, mlp.w_gate, mlp.w_up, mlp.w_down), None
 
 
-def apply_layer(cfg, blk: Block, x, positions, mode, cache=None):
-    """One block. Returns (x, aux or None, new_cache_entry)."""
-    h = rms_norm(x, blk.ln1, cfg.norm_eps)
-    out, new_c = _attn_sub(cfg, blk, h, positions, mode, cache)
+def apply_layer(cfg, blk: Block, x, positions, mode, cache=None,
+                cross_kv=None, causal=True):
+    """One block. ``cache``: in decode mode the layer's (k, v) views or
+    its recurrent state. Returns (x, aux or None, new cache entry: the
+    prefill's (k, v), or a recurrent block's new state)."""
+    if blk.kind in ATTN_KINDS:
+        h = _norm(cfg, blk.ln1, x)
+        out, new_c = _attn_sub(cfg, blk, h, positions, mode, cache, causal)
+        x = x + out
+        if hasattr(blk, "cross") and cross_kv is not None:
+            h = _norm(cfg, blk.ln_x, x)
+            x = x + _cross_sub(cfg, blk.cross, h, cross_kv)
+        h = _norm(cfg, blk.ln2, x)
+        out, aux = _ffn_sub(cfg, blk, h, mode)
+        return x + out, aux, new_c
+    b, dev = x.shape[0], x.device
+    if blk.kind == "rglru":
+        state = cache if cache is not None else rg.init_rg_state(
+            b, cfg.d_model, dev)
+        h = _norm(cfg, blk.ln1, x)
+        fn = rg.rglru_decode if mode == "decode" else rg.rglru_block
+        out, state = fn(blk.rg, h, state)
+        x = x + out
+        h = _norm(cfg, blk.ln2, x)
+        out, _ = _ffn_sub(cfg, blk, h, mode)
+        return x + out, None, state
+    state = cache if cache is not None else rk.init_rwkv_state(
+        b, cfg.n_rwkv_heads, cfg.rwkv_head_size, cfg.d_model, dev)
+    h = _norm(cfg, blk.ln1, x)
+    out, state = rk.time_mix(blk.rwkv, h, state, chunked=(mode != "decode"))
     x = x + out
-    h = rms_norm(x, blk.ln2, cfg.norm_eps)
-    out, aux = _ffn_sub(cfg, blk, h, mode)
-    return x + out, aux, new_c
+    h = _norm(cfg, blk.ln2, x)
+    out, state = rk.channel_mix(blk.rwkv, h, state)
+    return x + out, None, state
 
 
 # ---------------------------------------------------------------------------
 # cache
 # ---------------------------------------------------------------------------
 
+def _empty_entry(cfg, kind, reps, batch, max_len, dev):
+    """A zero cache entry of one unit, with the leading repeats axis."""
+    if kind in ATTN_KINDS:
+        window = layer_window(cfg, kind)
+        s_c = min(max_len, window) if window else max_len
+        return {n: torch.zeros((reps, batch, s_c, cfg.n_kv_heads,
+                                cfg.head_dim), dtype=torch.bfloat16,
+                               device=dev) for n in ("k", "v")}
+    state = (rg.init_rg_state(batch, cfg.d_model, dev) if kind == "rglru"
+             else rk.init_rwkv_state(batch, cfg.n_rwkv_heads,
+                                     cfg.rwkv_head_size, cfg.d_model, dev))
+    return type(state)(*(t.expand(reps, *t.shape).clone() for t in state))
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Device = None) -> list:
     """An empty cache: full-attention layers hold ``max_len`` slots,
-    sliding-window layers a ring of ``min(max_len, window)``."""
+    sliding-window layers a ring of ``min(max_len, window)``, recurrent
+    layers a zero state; the encoder-decoder's cross keys and values
+    for ``cfg.encoder_seq`` frames."""
     from ..kernels.backend import resolve_device
     dev = resolve_device(device)
-    check_ported(cfg)
-    hd, hkv = cfg.head_dim, cfg.n_kv_heads
-    cache = []
-    for unit, reps in layer_groups(cfg):
-        entry = {}
-        for j, kind in enumerate(unit):
-            window = layer_window(cfg, kind)
-            s_c = min(max_len, window) if window else max_len
-            entry[f"u{j}"] = {
-                n: torch.zeros((reps, batch, s_c, hkv, hd),
-                               dtype=torch.bfloat16, device=dev)
-                for n in ("k", "v")}
-        cache.append(entry)
+    cache = [{f"u{j}": _empty_entry(cfg, kind, reps, batch, max_len, dev)
+              for j, kind in enumerate(unit)}
+             for unit, reps in layer_groups(cfg)]
+    if cfg.is_encoder_decoder:
+        reps = layer_groups(cfg)[0][1]
+        cache.append({"cross": {
+            n: torch.zeros((reps, batch, cfg.encoder_seq, cfg.n_kv_heads,
+                            cfg.head_dim), dtype=torch.bfloat16, device=dev)
+            for n in ("k", "v")}})
     return cache
 
 
 def _layer_cache(cache, gi, j, r):
+    """Layer (gi, j, r)'s views into the cache: (k, v) or its state."""
     entry = cache[gi][f"u{j}"]
-    return entry["k"][r], entry["v"][r]
+    if isinstance(entry, dict):
+        return entry["k"][r], entry["v"][r]
+    return type(entry)(*(t[r] for t in entry))
 
 
 # ---------------------------------------------------------------------------
 # full-model passes
 # ---------------------------------------------------------------------------
 
-def _run_layers(cfg, model: CausalLM, x, positions, mode, cache=None):
-    """Every layer in order. Returns (x, aux_total, prefill entries by
-    (group, unit) as lists over repeats)."""
+def _run_layers(cfg, model: CausalLM, x, positions, mode, cache=None,
+                cross_kv=None):
+    """Every layer in order. ``cross_kv``: the decoder's stacked cross
+    (k, v) (the encoder-decoder has one decoder group). Returns (x,
+    aux_total, prefill entries by (group, unit) as lists over repeats);
+    in decode mode the recurrent states are written into ``cache``."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     entries: Dict[Tuple[int, int], list] = {}
     for blk, (gi, j, r, _) in zip(model.layers, layer_slots(cfg)):
         c = _layer_cache(cache, gi, j, r) if mode == "decode" else None
-        x, aux, new_c = apply_layer(cfg, blk, x, positions, mode, c)
+        xkv = ((cross_kv[0][r], cross_kv[1][r])
+               if cross_kv is not None and gi == 0 else None)
+        x, aux, new_c = apply_layer(cfg, blk, x, positions, mode, c, xkv)
         if aux is not None:
             aux_total = aux_total + aux
-        if new_c is not None:
+        if new_c is None:
+            continue
+        if mode == "decode":                  # a recurrent state
+            for dst, src in zip(c, new_c):
+                dst.copy_(src)
+        else:
             entries.setdefault((gi, j), []).append(new_c)
     return x, aux_total, entries
+
+
+def _encode(cfg, model: CausalLM, frames):
+    """The whisper encoder (the conv frontend is a stub: frames are
+    embeddings): frames + sinusoidal positions, non-causal "attn" blocks,
+    the encoder's norm."""
+    b, senc, _ = frames.shape
+    pos = torch.arange(senc, device=frames.device)[None].expand(b, senc)
+    x = frames.to(torch.bfloat16) + sinusoidal_pos(pos, cfg.d_model).to(
+        torch.bfloat16)
+    enc_cfg = encoder_config(cfg)
+    for blk in model.enc_layers:
+        x, _, _ = apply_layer(enc_cfg, blk, x, pos, "train", causal=False)
+    return _norm(cfg, model.enc_norm, x)
+
+
+def _project_cross(cfg, model: CausalLM, enc):
+    """Each decoder layer's cross keys and values of the encoder output:
+    (k, v), each stacked (L, B, S_enc, Hkv, hd)."""
+    b, senc, _ = enc.shape
+    _, hkv, hd = model.layers[0].cross.shape
+    k = torch.stack([(enc @ blk.cross.wk).reshape(b, senc, hkv, hd)
+                     for blk in model.layers])
+    v = torch.stack([(enc @ blk.cross.wv).reshape(b, senc, hkv, hd)
+                     for blk in model.layers])
+    return k, v
 
 
 def _positions_for(cfg, batch):
@@ -321,11 +492,14 @@ def _positions_for(cfg, batch):
     return torch.arange(total, device=tokens.device)[None].expand(b, total)
 
 
-def _input_embeds(cfg, model: CausalLM, batch):
-    """Token (+ stub-frontend patch) embedding."""
+def _input_embeds(cfg, model: CausalLM, batch, positions):
+    """Token (+ stub-frontend patch) embedding; the encoder-decoder adds
+    the sinusoidal position."""
     x = model.embed[batch["tokens"]]
     if cfg.frontend == "vision_stub" and "patches" in batch:
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    if cfg.is_encoder_decoder:
+        x = x + sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
     return x
 
 
@@ -358,11 +532,21 @@ def lm_loss(cfg, logits, labels):
     return torch.sum((logz - ll) * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
+def _cross_of(cfg, model: CausalLM, batch):
+    """The decoder's cross (k, v) from ``batch["frames"]`` (None unless
+    the model is an encoder-decoder)."""
+    if not cfg.is_encoder_decoder:
+        return None
+    return _project_cross(cfg, model, _encode(cfg, model, batch["frames"]))
+
+
 def _forward(cfg, model: CausalLM, batch):
+    cross_kv = _cross_of(cfg, model, batch)
     positions = _positions_for(cfg, batch)
-    x = _input_embeds(cfg, model, batch)
-    x, aux, _ = _run_layers(cfg, model, x, positions, "train")
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    x = _input_embeds(cfg, model, batch, positions)
+    x, aux, _ = _run_layers(cfg, model, x, positions, "train",
+                            cross_kv=cross_kv)
+    x = _norm(cfg, model.final_norm, x)
     return logits_fn(cfg, model, x), aux
 
 
@@ -373,28 +557,36 @@ def forward(cfg: ModelConfig, model: CausalLM, batch) -> torch.Tensor:
 
 
 def forward_train(cfg: ModelConfig, model: CausalLM, batch):
-    """batch: tokens/labels (+patches). Returns (loss, metrics), forward
-    only (the backward waits for the training slice)."""
+    """batch: tokens/labels (+frames|patches). Returns (loss, metrics),
+    forward only (the backward waits for the training slice)."""
     logits, aux = _forward(cfg, model, batch)
     loss = lm_loss(cfg, logits, batch["labels"])
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, model: CausalLM, batch, pad_to: int = 0):
-    """Fill the KV cache; returns (last_token_logits, cache).
+    """Fill the cache; returns (last_token_logits, cache).
 
     ``pad_to``: decode headroom. Full-attention caches are extended to
     this many slots so that decode at positions past the prompt does not
-    wrap the ring; sliding-window caches keep their window size."""
+    wrap the ring; sliding-window caches keep their window size, and
+    recurrent states have none. The encoder-decoder encodes
+    ``batch["frames"]`` and appends the cross keys and values."""
+    cross_kv = _cross_of(cfg, model, batch)
     positions = _positions_for(cfg, batch)
     s_in = positions.shape[1]
-    x = _input_embeds(cfg, model, batch)
-    x, _, entries = _run_layers(cfg, model, x, positions, "prefill")
+    x = _input_embeds(cfg, model, batch, positions)
+    x, _, entries = _run_layers(cfg, model, x, positions, "prefill",
+                                cross_kv=cross_kv)
     cache = []
     for gi, (unit, _) in enumerate(layer_groups(cfg)):
         group = {}
         for j, kind in enumerate(unit):
             reps = entries[(gi, j)]
+            if kind not in ATTN_KINDS:        # a state NamedTuple
+                group[f"u{j}"] = type(reps[0])(
+                    *(torch.stack(leaf) for leaf in zip(*reps)))
+                continue
             kv = {n: torch.stack([e[i] for e in reps])
                   for i, n in enumerate(("k", "v"))}
             if pad_to > s_in and not layer_window(cfg, kind):
@@ -402,7 +594,9 @@ def prefill(cfg: ModelConfig, model: CausalLM, batch, pad_to: int = 0):
                       for n, t in kv.items()}
             group[f"u{j}"] = kv
         cache.append(group)
-    x = rms_norm(x[:, -1:], model.final_norm, cfg.norm_eps)
+    if cross_kv is not None:
+        cache.append({"cross": dict(zip(("k", "v"), cross_kv))})
+    x = _norm(cfg, model.final_norm, x[:, -1:])
     return logits_fn(cfg, model, x)[:, 0], cache
 
 
@@ -410,9 +604,14 @@ def decode_step(cfg: ModelConfig, model: CausalLM, cache, token, pos):
     """One decode step. token: (B,) int; pos: (B,) int (absolute).
     Writes the cache in place; returns (logits (B, V) fp32, cache)."""
     positions = pos[:, None]
-    x = _input_embeds(cfg, model, {"tokens": token[:, None]})
-    x, _, _ = _run_layers(cfg, model, x, positions, "decode", cache)
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    x = _input_embeds(cfg, model, {"tokens": token[:, None]}, positions)
+    cross_kv = None
+    if cfg.is_encoder_decoder:
+        cross = cache[-1]["cross"]
+        cross_kv = (cross["k"], cross["v"])
+    x, _, _ = _run_layers(cfg, model, x, positions, "decode", cache,
+                          cross_kv)
+    x = _norm(cfg, model.final_norm, x)
     return logits_fn(cfg, model, x)[:, 0], cache
 
 

@@ -30,6 +30,14 @@ def expert_block_id(layer: int, expert: int, n_experts: int) -> int:
     return layer * n_experts + expert
 
 
+def unrouted_layers(cfg: ModelConfig, reps: int) -> int:
+    """The layers that ``capture_expert_trace`` counts for a unit without
+    a router: the reference adds the unit's ``ln1.shape[0]``, its
+    repeats, and 1 where ``ln1`` has no shape (the encoder-decoder's
+    ``{"s", "b"}`` norms)."""
+    return 1 if cfg.is_encoder_decoder else reps
+
+
 def capture_expert_trace(cfg: ModelConfig, model: CausalLM, token_batches,
                          interleave: int = 4, seed: int = 0) -> np.ndarray:
     """Run the model's routers over batches; emit the expert access stream.
@@ -52,10 +60,8 @@ def capture_expert_trace(cfg: ModelConfig, model: CausalLM, token_batches,
             for j in range(len(unit)):
                 blocks = [blk for blk, (g, u, _, _) in zip(model.layers, slots)
                           if (g, u) == (gi, j)]
-                if not isinstance(blocks[0].mlp, MoE):
-                    # the reference adds the unit's ``ln1.shape[0]`` (its
-                    # repeats) here, 1 where ln1 has no shape
-                    layer += reps
+                if not isinstance(getattr(blocks[0], "mlp", None), MoE):
+                    layer += unrouted_layers(cfg, reps)
                     continue
                 idx = torch.stack([router_topk(router_logits(
                     flat, blk.mlp.router), cfg.top_k)[1] for blk in blocks])

@@ -1011,11 +1011,14 @@ def test_training_on_the_card_equals_the_cpu(cuda):
         assert max(abs(a - b) for a, b in zip(card[1], cpu[1])) <= 1e-6
 
 
-def teacher_forced_logits(cfg, model, tokens, dev, steps=4):
+def teacher_forced_logits(cfg, model, tokens, dev, steps=4, frames=None):
     from repro_torch.models import lm
     tokens = torch.as_tensor(tokens, device=dev)
     s = tokens.shape[1] - steps
-    logits, cache = lm.prefill(cfg, model, {"tokens": tokens[:, :s]},
+    batch = {"tokens": tokens[:, :s]}
+    if frames is not None:
+        batch["frames"] = frames.to(dev)
+    logits, cache = lm.prefill(cfg, model, batch,
                                pad_to=tokens.shape[1] + 8)
     out = [logits]
     for i in range(steps):
@@ -1027,19 +1030,28 @@ def teacher_forced_logits(cfg, model, tokens, dev, steps=4):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2-moe-a2.7b"])
-def test_reduced_model_decode_on_the_card_matches_the_cpu(cuda, arch):
+@pytest.mark.parametrize("arch,prompt", [
+    ("llama3.2-3b", 24), ("qwen2-moe-a2.7b", 24), ("recurrentgemma-9b", 24),
+    ("rwkv6-1.6b", 24), ("rwkv6-1.6b", 32), ("whisper-medium", 24)])
+def test_reduced_model_decode_on_the_card_matches_the_cpu(cuda, arch,
+                                                          prompt):
     """Prefill and 4 teacher-forced decode steps of ``reduced_config``
-    (weights from the CPU generator of seed 0) on the card, within
-    rtol = atol = 5e-2 of the CPU's logits, all finite."""
+    (weights from the CPU generator of seed 0; whisper with seeded
+    frames) on the card, within rtol = atol = 5e-2 of the CPU's logits,
+    all finite. RWKV prefills 24 tokens sequentially, 32 in chunks."""
     from repro_torch.configs import ARCHS, reduced_config
     from repro_torch.models import lm
     cfg = reduced_config(ARCHS[arch])
     model = lm.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
-    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (2, 28))
-    cpu = teacher_forced_logits(cfg, model, tokens, "cpu")
-    card = teacher_forced_logits(cfg, model.to(cuda), tokens, cuda)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab,
+                                               (2, prompt + 4))
+    frames = (torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).bfloat16()
+              if cfg.is_encoder_decoder else None)
+    cpu = teacher_forced_logits(cfg, model, tokens, "cpu", frames=frames)
+    card = teacher_forced_logits(cfg, model.to(cuda), tokens, cuda,
+                                 frames=frames)
     for a, b in zip(card, cpu):
         assert np.isfinite(a).all()
         np.testing.assert_allclose(a, b, rtol=5e-2, atol=5e-2)
@@ -1075,3 +1087,72 @@ def test_expert_trace_and_stats_on_the_card_equal_the_cpu(cuda):
             np.testing.assert_array_equal(a, b, err_msg=name)
         launched = ops.launch_counts()["mithril_record"] - before
         assert (launched > 0) == sim.use_mithril
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", ["rglru", "rwkv_chunked",
+                                   "rwkv_sequential", "encoder"])
+def test_new_blocks_on_the_card_match_the_cpu(cuda, block):
+    """Each block of the recurrent and encoder-decoder families at the
+    reduced size (d 128), from the same state, on the card and the CPU:
+    outputs within 5e-2, float32 states within 1e-3."""
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.models import lm, rglru, rwkv6
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((2, 32, 128), generator=gen).bfloat16()
+
+    def run(dev):
+        if block == "rglru":
+            p = rglru.RgLRU(128, device="cpu")
+            rglru.init_rglru_params(p, torch.Generator().manual_seed(0))
+            p = p.to(dev)
+            st = rglru.init_rg_state(2, 128, dev)
+            y, st = rglru.rglru_block(p, x.to(dev), st)
+            z, st = rglru.rglru_decode(p, x[:, :1].to(dev), st)
+            return [y, z, st.h, st.conv]
+        if block.startswith("rwkv"):
+            p = rwkv6.Rwkv(128, 256, 32, device="cpu")
+            rwkv6.init_rwkv_params(p, torch.Generator().manual_seed(0))
+            p = p.to(dev)
+            st = rwkv6.init_rwkv_state(2, 4, 32, 128, dev)
+            seq = 32 if block == "rwkv_chunked" else 24
+            y, st = rwkv6.time_mix(p, x[:, :seq].to(dev), st)
+            z, st = rwkv6.channel_mix(p, y, st)
+            return [y, z, *st]
+        cfg = reduced_config(ARCHS["whisper-medium"])
+        model = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu").to(dev)
+        enc = lm._encode(cfg, model, x[:, :cfg.encoder_seq].to(dev))
+        return [enc, *lm._project_cross(cfg, model, enc)]
+
+    for card, cpu in zip(run(cuda), run("cpu"), strict=True):
+        tol = 1e-3 if card.dtype == torch.float32 else 5e-2
+        np.testing.assert_allclose(card.float().cpu().numpy(),
+                                   cpu.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_paper_mining_first_barrier_replays_equal_eager(cuda):
+    """The paper-size configuration (PAPER_MITHRIL, 65,536 blocks, 16
+    ways) on seeds 1 and 2 of chip_smoke's looping traces: their first
+    217,600 requests through the runner, then the next 4,096, in which
+    each lane mines for the first and second time (steps 218,416 /
+    220,756 and 218,552 / 221,007), as eager steps on a copy of the
+    carry and as replays: every leaf and hit equal."""
+    import sys
+    from pathlib import Path
+    from repro_torch.cache import chunk_runner, sweep
+    from repro_torch.traces.synthetic import looping
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    cfg = chip_smoke.real_config()
+    blocks = np.stack([looping(300_000, seed=s, **chip_smoke.PAPER_LOOPS)
+                       for s in (1, 2)])
+    sweep(cfg, blocks[:, :217_600], device=cuda)
+    runner = chunk_runner(cfg, device=cuda)
+    assert runner.carry(2)["mith"].n_mines.tolist() == [0, 0]
+    info = chip_smoke.paper_replay_equals_eager(
+        cfg, runner, blocks[:, 217_600:221_696], cuda)
+    assert info["equal"], info
+    assert info["mining_runs"] == 4 and info["lanes_mined"] == 2
+

@@ -52,7 +52,9 @@ ALONE_MODULES = ["repro_torch.cache.tiered", "repro_torch.launch.serve",
                  "repro_torch.optim", "repro_torch.traces.io",
                  # the model substrate's serving half
                  "repro_torch.models.lm", "repro_torch.configs",
-                 "repro_torch.traces.capture"]
+                 "repro_torch.traces.capture",
+                 # the recurrent families
+                 "repro_torch.models.rglru", "repro_torch.models.rwkv6"]
 
 
 @pytest.mark.parametrize("name", ALONE_MODULES)

@@ -1,15 +1,18 @@
 """The port's language model against the reference's, on the CPU.
 
-For the 7 architectures the port runs (dense, GQA with QKV bias, SWA +
-MoE, MoE with shared experts, the vision stub), at ``reduced_config``,
+For the 10 architectures (dense, GQA with QKV bias, SWA + MoE, MoE with
+shared experts, the vision stub, RG-LRU + local attention, RWKV6, the
+whisper encoder-decoder), at ``reduced_config``,
 the reference's parameters (``repro.models.init_params``) are carried
 into the port by ``convert.lm_params_from``, and the same tokens (numpy,
 seeded) go through both:
 
 * prefill logits and 4 teacher-forced ``decode_step`` logits within
   rtol = atol = 5e-2, the tolerance of the reference's own
-  ``test_decode_matches_forward``; the KV caches within the bf16
-  tolerance (2e-2);
+  ``test_decode_matches_forward``; the KV caches (and the whisper cross
+  keys and values) within the bf16 tolerance (2e-2), the recurrent
+  states within the logits' tolerance (their float32 leaves carry the
+  bf16 activations' differences);
 * the port's decode against the port's full-sequence forward;
 * the training pass's loss (forward only) within 1e-2.
 
@@ -22,8 +25,8 @@ the MoE architectures a router input a few bf16 steps away moves an
 expert choice, and the logits with it, by far more than the tolerance.
 With the option off the compiler rounds where the program rounds.
 
-The three families the port does not run yet (RG-LRU, RWKV6, the
-whisper encoder-decoder) raise ``NotImplementedError``.
+Every architecture builds, initialises and gives an empty cache, and
+the module holds as many parameters as the reference's pytree.
 """
 
 import jax
@@ -44,8 +47,9 @@ from repro_torch.convert import lm_params_from, lm_state_names
 from repro_torch.models import lm
 
 PORTED = ["llama3.2-3b", "qwen2-7b", "qwen2.5-14b", "qwen1.5-110b",
-          "mixtral-8x7b", "qwen2-moe-a2.7b", "internvl2-1b"]
-NOT_PORTED = ["recurrentgemma-9b", "rwkv6-1.6b", "whisper-medium"]
+          "mixtral-8x7b", "qwen2-moe-a2.7b", "internvl2-1b",
+          "recurrentgemma-9b", "rwkv6-1.6b", "whisper-medium"]
+ATTN_ONLY = PORTED[:7]
 TOL = 5e-2
 CACHE_TOL = 2e-2
 B, S, STEPS = 2, 24, 4
@@ -72,23 +76,36 @@ def setup(arch, seed=0):
     return cfg, ref_cfg, params, model
 
 
-def batches(cfg, seed=1):
+def bf16_pair(a: np.ndarray):
+    return (jnp.asarray(a, jnp.bfloat16),
+            torch.from_numpy(a.astype(np.float32)).bfloat16())
+
+
+def batches(cfg, seed=1, batch=B, seq=S):
     """Token batches for both (with stub patches for the vision
-    frontend: they take the first positions)."""
+    frontend: they take the first positions; with stub frames for the
+    encoder-decoder)."""
     rng = np.random.default_rng(seed)
-    tokens = rng.integers(0, cfg.vocab, (B, S + STEPS)).astype(np.int32)
-    ref = {"tokens": jnp.asarray(tokens[:, :S])}
-    port = {"tokens": torch.from_numpy(tokens[:, :S])}
+    tokens = rng.integers(0, cfg.vocab, (batch, seq + STEPS)).astype(
+        np.int32)
+    ref = {"tokens": jnp.asarray(tokens[:, :seq])}
+    port = {"tokens": torch.from_numpy(tokens[:, :seq])}
     if cfg.frontend == "vision_stub":
-        patches = rng.standard_normal((B, cfg.n_patches, cfg.d_model))
-        ref["patches"] = jnp.asarray(patches, jnp.bfloat16)
-        port["patches"] = torch.from_numpy(patches.astype(np.float32)
-                                           ).bfloat16()
+        ref["patches"], port["patches"] = bf16_pair(
+            rng.standard_normal((batch, cfg.n_patches, cfg.d_model)))
+    if cfg.is_encoder_decoder:
+        ref["frames"], port["frames"] = bf16_pair(
+            rng.standard_normal((batch, cfg.encoder_seq, cfg.d_model)))
     return tokens, ref, port
 
 
+def entry_leaves(entry) -> dict:
+    """A cache entry's leaves by name: {"k", "v"} or a state's fields."""
+    return dict(entry) if isinstance(entry, dict) else entry._asdict()
+
+
 def test_every_architecture_is_ported_or_raises():
-    assert sorted(PORTED + NOT_PORTED) == sorted(ARCHS) == sorted(REF_ARCHS)
+    assert sorted(PORTED) == sorted(ARCHS) == sorted(REF_ARCHS)
     for name in ARCHS:                  # the configs are copies
         assert ARCHS[name] == get_config(name)
         assert vars(ARCHS[name]) == vars(REF_ARCHS[name])
@@ -127,11 +144,16 @@ def test_prefill_and_decode_match_reference(arch):
     for group, group_ref in zip(cache, cache_ref):
         assert sorted(group) == sorted(group_ref)
         for unit in group:
-            for name in ("k", "v"):
-                assert group[unit][name].dtype == torch.bfloat16
+            got_leaves = entry_leaves(group[unit])
+            want_leaves = entry_leaves(group_ref[unit])
+            assert sorted(got_leaves) == sorted(want_leaves)
+            tol = CACHE_TOL if isinstance(group[unit], dict) else TOL
+            for name, leaf in got_leaves.items():
+                want_leaf = want_leaves[name]
+                assert str(leaf.dtype).split(".")[1] == str(want_leaf.dtype)
                 np.testing.assert_allclose(
-                    as_np(group[unit][name]), as_np(group_ref[unit][name]),
-                    rtol=CACHE_TOL, atol=CACHE_TOL)
+                    as_np(leaf), as_np(want_leaf), rtol=tol, atol=tol,
+                    err_msg=f"{unit}.{name}")
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -141,13 +163,17 @@ def test_decode_matches_forward(arch):
     cfg = reduced_config(ARCHS[arch])
     model = lm.init_params(cfg, torch.Generator().manual_seed(0),
                            device="cpu")
-    tokens = torch.from_numpy(np.random.default_rng(7).integers(
-        0, cfg.vocab, (1, 65)))
-    _, cache = lm.prefill(cfg, model, {"tokens": tokens[:, :64]},
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 65)))
+    extra = {}
+    if cfg.is_encoder_decoder:
+        extra["frames"] = bf16_pair(rng.standard_normal(
+            (1, cfg.encoder_seq, cfg.d_model)))[1]
+    _, cache = lm.prefill(cfg, model, {"tokens": tokens[:, :64], **extra},
                           pad_to=72)
     got, _ = lm.decode_step(cfg, model, cache, tokens[:, 64],
                             torch.tensor([64]))
-    want = lm.forward(cfg, model, {"tokens": tokens})[:, -1]
+    want = lm.forward(cfg, model, {"tokens": tokens, **extra})[:, -1]
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL,
                                atol=TOL)
 
@@ -172,15 +198,20 @@ def test_forward_train_loss_matches_reference(arch):
     np.testing.assert_allclose(float(got), float(want), rtol=1e-2)
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_every_architecture_builds(arch):
+    """The module at full width (on the meta device), its reduced weights
+    (finite, norms and biases zero) and an empty cache."""
+    lm.CausalLM(get_config(arch), device="meta")
     cfg = reduced_config(ARCHS[arch])
-    for build in (lambda: lm.CausalLM(cfg, device="meta"),
-                  lambda: lm.init_params(cfg, torch.Generator(),
-                                         device="cpu"),
-                  lambda: lm.init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build()
+    model = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    for name, prm in model.named_parameters():
+        assert torch.isfinite(prm.float()).all(), name
+        if name.rsplit(".", 1)[-1] in lm.ZERO_LEAVES:
+            assert not prm.any(), name
+    cache = lm.init_cache(cfg, 1, 8, device="cpu")
+    assert len(cache) == len(lm.layer_groups(cfg)) + cfg.is_encoder_decoder
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -192,8 +223,8 @@ def test_state_names_cover_the_reference_pytree(arch):
     state = model.state_dict()
     assert set(names) == set(state)
     leaves = jax.tree_util.tree_leaves_with_path(params)
-    n_ref = sum(leaf.shape[0] if path[0].key == "blocks" else 1
-                for path, leaf in leaves)
+    n_ref = sum(leaf.shape[0] if path[0].key in ("blocks", "enc_blocks")
+                else 1 for path, leaf in leaves)
     assert len(names) == n_ref
     assert len(set(names.values())) == len(names)
     for name, path in names.items():
@@ -203,7 +234,9 @@ def test_state_names_cover_the_reference_pytree(arch):
         assert tuple(state[name].shape) == leaf.shape
         assert str(state[name].dtype).split(".")[1] == str(leaf.dtype)
         np.testing.assert_array_equal(as_np(state[name]), as_np(leaf))
-    assert names["layers.1.attn.wq"] == ("blocks", 0, "u0", "attn", "wq", 1)
+    if arch in ATTN_ONLY:
+        assert names["layers.1.attn.wq"] == ("blocks", 0, "u0", "attn",
+                                             "wq", 1)
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -217,25 +250,51 @@ def test_init_cache_matches_reference(arch):
         got = lm.init_cache(cfg, 3, max_len, device="cpu")
         assert len(got) == len(want)
         for group, group_ref in zip(got, want):
-            for unit, kv in group.items():
-                for name, t in kv.items():
-                    assert tuple(t.shape) == group_ref[unit][name].shape
-                    assert t.dtype == torch.bfloat16 and not t.any()
+            assert sorted(group) == sorted(group_ref)
+            for unit, entry in group.items():
+                want_leaves = entry_leaves(group_ref[unit])
+                for name, t in entry_leaves(entry).items():
+                    assert tuple(t.shape) == want_leaves[name].shape
+                    assert str(t.dtype).split(".")[1] == str(
+                        want_leaves[name].dtype)
+                    assert not t.any()
 
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_parameter_count(arch):
-    """The module holds ``param_count()`` parameters plus what that count
-    leaves out: the final norm, QKV biases and shared-expert gates."""
+    """The module holds as many parameters as the reference's pytree at
+    the published widths; for the attention families that is
+    ``param_count()`` plus what that count leaves out: the final norm,
+    QKV biases and shared-expert gates."""
     cfg = get_config(arch)
     model = lm.CausalLM(cfg, device="meta")
-    extra = cfg.d_model
-    if cfg.qkv_bias:
-        extra += cfg.n_layers * (cfg.n_heads + 2 * cfg.n_kv_heads) \
-            * cfg.head_dim
-    if cfg.n_shared_experts:
-        extra += cfg.n_layers * cfg.d_model
-    assert sum(p.numel() for p in model.parameters()) == \
-        cfg.param_count() + extra
-    if arch == "llama3.2-3b":
-        assert cfg.param_count() + extra == 3_212_749_824
+    n = sum(p.numel() for p in model.parameters())
+    shapes = jax.eval_shape(lambda k: ref_init(REF_ARCHS[arch], k),
+                            jax.random.PRNGKey(0))
+    assert n == sum(leaf.size for leaf in jax.tree.leaves(shapes))
+    if arch in ATTN_ONLY:
+        extra = cfg.d_model
+        if cfg.qkv_bias:
+            extra += cfg.n_layers * (cfg.n_heads + 2 * cfg.n_kv_heads) \
+                * cfg.head_dim
+        if cfg.n_shared_experts:
+            extra += cfg.n_layers * cfg.d_model
+        assert n == cfg.param_count() + extra
+    want = {"llama3.2-3b": 3_212_749_824,
+            "recurrentgemma-9b": 10_444_771_328,
+            "rwkv6-1.6b": 1_583_990_784, "whisper-medium": 811_569_152}
+    if arch in want:
+        assert n == want[arch]
+
+
+def test_recurrentgemma_groups_match_reference():
+    """38 layers: 12 units of (rglru, rglru, local) and a remainder group
+    (rglru, rglru), as the reference groups them."""
+    from repro.models.lm import layer_groups as ref_groups
+    cfg = get_config("recurrentgemma-9b")
+    groups = lm.layer_groups(cfg)
+    assert groups == ref_groups(REF_ARCHS["recurrentgemma-9b"])
+    assert groups == [(("rglru", "rglru", "local"), 12),
+                      (("rglru", "rglru"), 1)]
+    kinds = [blk.kind for blk in lm.CausalLM(cfg, device="meta").layers]
+    assert kinds.count("rglru") == 26 and kinds.count("local") == 12

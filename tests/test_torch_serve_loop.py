@@ -86,6 +86,58 @@ def test_main_runs_on_the_cpu(capsys):
     assert "6 tokens decoded" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-1.6b"])
+def test_serve_loop_runs_the_recurrent_families(arch):
+    """Two requests of 16 tokens and 4 steps through both loops: the same
+    counts and positions, finite logits, and caches of the reference's
+    layout whose recurrent states the steps wrote in place."""
+    cfg = reduced_config(ARCHS[arch])
+    ref_cfg = ref_reduced(REF_ARCHS[arch])
+    params = ref_init(ref_cfg, jax.random.PRNGKey(0))
+    model = lm_params_from(jax.tree.map(np.asarray, params), cfg,
+                           device="cpu")
+    ref_loop = RefServeLoop(ref_cfg, params, max_len=48)
+    loop = serve.ServeLoop(cfg, model, max_len=48)
+    rng = np.random.default_rng(0)
+    for rid in range(2):
+        prompt = rng.integers(0, cfg.vocab, 16)
+        ref_loop.admit(rid, jnp.asarray(prompt, jnp.int32))
+        loop.admit(rid, torch.as_tensor(prompt, dtype=torch.int32))
+    admitted = [{u: [t.clone() for t in (e.values() if isinstance(e, dict)
+                                         else e)]
+                 for u, e in g.items()} for g in loop.requests[0]["cache"]]
+    for _ in range(4):
+        ref_loop.step()
+        loop.step()
+    assert loop.stats == ref_loop.stats == {"prefills": 2,
+                                            "decode_steps": 4, "tokens": 8}
+    for rid, st in loop.requests.items():
+        ref_st = ref_loop.requests[rid]
+        assert st["pos"] == ref_st["pos"] == 20
+        assert torch.isfinite(st["logits"]).all()
+        assert len(st["cache"]) == len(ref_st["cache"])
+        for group, ref_group in zip(st["cache"], ref_st["cache"]):
+            for unit, entry in group.items():
+                leaves = (entry.values() if isinstance(entry, dict)
+                          else entry)
+                ref_leaves = (ref_group[unit].values()
+                              if isinstance(entry, dict)
+                              else ref_group[unit])
+                for t, r in zip(leaves, ref_leaves, strict=True):
+                    assert tuple(t.shape) == r.shape
+    for group, before in zip(loop.requests[0]["cache"], admitted):
+        for unit, entry in group.items():
+            if not isinstance(entry, dict):
+                assert not torch.equal(entry[0], before[unit][0]), unit
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-1.6b"])
+def test_main_runs_the_recurrent_families_on_the_cpu(arch):
+    out = serve.main(["--arch", arch, "--device", "cpu", "--requests", "2",
+                      "--prompt-len", "8", "--decode-steps", "3"])
+    assert out["tokens"] == 6 and out["arch"] == arch
+
+
 @pytest.mark.parametrize("args", [(8, 4, 3, 64, 0), (5, 16, 2, 100, 7),
                                   (12, 128, 1, 16_384, 3)])
 def test_capture_page_trace_equals_reference(args):
@@ -151,6 +203,46 @@ def test_capture_expert_trace_of_a_dense_model_is_empty():
         ref_cfg, params, [jnp.asarray(b) for b in batches])
     assert len(want) == 0
     assert len(capture.capture_expert_trace(cfg, model, batches)) == 0
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "rwkv6-1.6b",
+                                  "recurrentgemma-9b"])
+def test_capture_expert_trace_of_the_recurrent_and_encdec_models(arch):
+    """Without a router the stream is empty, as the reference's."""
+    ref_cfg = ref_reduced(REF_ARCHS[arch])
+    cfg = reduced_config(ARCHS[arch])
+    params = ref_init(ref_cfg, jax.random.PRNGKey(0))
+    model = lm_params_from(jax.tree.map(np.asarray, params), cfg,
+                           device="cpu")
+    batches = bench_geometry(cfg.vocab)[:2]
+    want = ref_capture.capture_expert_trace(
+        ref_cfg, params, [jnp.asarray(b) for b in batches])
+    assert len(want) == len(capture.capture_expert_trace(cfg, model,
+                                                         batches)) == 0
+
+
+def test_capture_counts_an_unrouted_encdec_unit_as_one_layer():
+    """The reference counts a unit without a router by ``ln1.shape[0]``,
+    its repeats, and by 1 where ``ln1`` is the encoder-decoder's dict
+    norm. An encoder-decoder whose decoder repeats (rglru, MoE attn)
+    twice shows it: the MoE layers are numbered 1 and 2, not 2 and 3,
+    in both."""
+    kw = dict(layer_pattern=("rglru", "attn"), n_layers=4, n_experts=4,
+              top_k=2, moe_d_ff=64)
+    ref_cfg = dataclasses.replace(ref_reduced(REF_ARCHS["whisper-medium"]),
+                                  **kw)
+    cfg = dataclasses.replace(reduced_config(ARCHS["whisper-medium"]), **kw)
+    params = ref_init(ref_cfg, jax.random.PRNGKey(0))
+    model = lm_params_from(jax.tree.map(np.asarray, params), cfg,
+                           device="cpu")
+    batches = bench_geometry(cfg.vocab)[:3]
+    want = ref_capture.capture_expert_trace(
+        ref_cfg, params, [jnp.asarray(b) for b in batches])
+    got = capture.capture_expert_trace(cfg, model, batches)
+    np.testing.assert_array_equal(got, want)
+    assert set(np.unique(got) // cfg.n_experts) == {1, 2}
+    assert capture.unrouted_layers(cfg, 2) == 1
+    assert capture.unrouted_layers(ARCHS["recurrentgemma-9b"], 12) == 12
 
 
 @pytest.mark.parametrize("mithril", [False, True], ids=["lru",
