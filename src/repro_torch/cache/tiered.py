@@ -71,6 +71,43 @@ def _as_tensor(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     return x.to(device=device, dtype=dtype)
 
 
+class MissRoute:
+    """A one-lane MITHRIL state fed one missed item at a time: record the
+    miss, mine when the event filled the mining table, and return the
+    item's prefetch candidates (the reference's record, ``maybe_mine``,
+    then ``lookup``). The serving tier's misses and the data pipeline's
+    shard readahead both take this route.
+
+    On the card a miss is one launch and one wait (``ops.MissStep``);
+    after a full mining table, :meth:`mine_and_probe` adds the mining run
+    (``ops.mithril_mine_step``) and the lookup kernel, and one wait. CPU
+    states take the plain versions."""
+
+    def __init__(self, cfg: MithrilConfig, dev: torch.device):
+        self.cfg = cfg
+        self.state = mithril.init(cfg, dev)
+        self._miss = ops.MissStep(cfg.mine_rows, cfg.prefetch_list, dev)
+        # the item of a miss that mined, for the lookup after the run
+        self._query = torch.zeros(1, dtype=torch.int32, device=dev)
+        self._all = ops.all_lanes(1, dev)         # need of the one lane
+        # the lane's prefetch table, as the lookup takes it: the same
+        # tensors every call, so its launcher binds them once
+        self._pf = (self.state.pf_key[0], self.state.pf_vals[0])
+
+    def miss(self, item: int) -> List[int]:
+        """Record a miss of ``item``; its candidates, EMPTY dropped."""
+        need, cand = self._miss(self.state, item)
+        return self.mine_and_probe(item) if need else cand
+
+    def mine_and_probe(self, item: int) -> List[int]:
+        """The mining run of the lane, then the probe of ``item`` in the
+        mined table."""
+        ops.mithril_mine_step(self.cfg, self.state, self._all)
+        self._query.fill_(item)     # a fill launch: no host-to-device copy
+        cand = ops.prefetch_lookup(self._query, *self._pf)
+        return [c for c in cand[0].tolist() if c >= 0]
+
+
 class TieredKVCache:
     """Page-granular two-tier KV store with optional MITHRIL prefetch.
 
@@ -133,16 +170,10 @@ class TieredKVCache:
 
         self.stats = TieredStats()
         self.mith_cfg = mithril_cfg
+        self._route = None
         if mithril_cfg is not None:
-            self._mstate = mithril.init(mithril_cfg, dev)
-            self._miss = ops.MissStep(mithril_cfg.mine_rows,
-                                      mithril_cfg.prefetch_list, dev)
-            # the page of a miss that mined, for the lookup after the run
-            self._query = torch.zeros(1, dtype=torch.int32, device=dev)
-            self._all = ops.all_lanes(1, dev)     # need of the one lane
-            # the lane's prefetch table, as the lookup takes it: the same
-            # tensors every call, so its launcher binds them once
-            self._pf = (self._mstate.pf_key[0], self._mstate.pf_vals[0])
+            self._route = MissRoute(mithril_cfg, dev)
+            self._mstate = self._route.state
 
     # -- tier management ----------------------------------------------------
 
@@ -185,24 +216,10 @@ class TieredKVCache:
         return s
 
     def _mithril_on_miss(self, page: int) -> List[int]:
-        """Record the miss and probe the prefetch table for the page's
-        candidates: one launch and one wait on the card
-        (``ops.MissStep``). When the event filled the mining table, mine
-        and probe the mined table, the reference's order (record and
-        ``maybe_mine``, then ``lookup``)."""
-        if self.mith_cfg is None:
-            return []
-        need, cand = self._miss(self._mstate, page)
-        return self._mine_and_probe(page) if need else cand
-
-    def _mine_and_probe(self, page: int) -> List[int]:
-        """The mining run of the tier's lane, then the probe of ``page``
-        in the mined table: on the card two launches (the whole run in
-        ``ops.mithril_mine_step``, the lookup kernel) and one wait."""
-        ops.mithril_mine_step(self.mith_cfg, self._mstate, self._all)
-        self._query.fill_(page)     # a fill launch: no host-to-device copy
-        cand = ops.prefetch_lookup(self._query, *self._pf)
-        return [c for c in cand[0].tolist() if c >= 0]
+        """Record the miss and return the page's prefetch candidates
+        (:class:`MissRoute`: one launch and one wait on the card, and
+        after a full mining table the mining run and the lookup)."""
+        return [] if self._route is None else self._route.miss(page)
 
     def access(self, pages: np.ndarray) -> np.ndarray:
         """Make ``pages`` resident; returns their slot ids."""

@@ -25,7 +25,10 @@ A state produced by the JAX reference (as numpy arrays, or anything
   units) into the port's ``models.lm.CausalLM``, one tensor per layer,
   dtypes kept (bf16 weights, the float32 MoE router);
   :func:`lm_state_names` names, for each entry of the port's state dict,
-  the reference leaf it comes from.
+  the reference leaf it comes from;
+* :func:`adamw_state_from` carries a reference AdamW state of such a
+  model (``OptState``: step, master, m, v, as numpy) into the port's
+  ``optim.adamw.OptState`` under the same names.
 
 The port's functions take a leading lanes axis; the reference's sweep
 carry has one, a single reference state gets one with ``lanes=True``.
@@ -215,3 +218,32 @@ def lm_params_from(params_np: Any, cfg,
                                  f"{tuple(state[name].shape)}")
             state[name].copy_(value)
     return model
+
+
+def _lm_leaves(tree_np: Any, cfg, dtype: torch.dtype, dev) -> Dict[str,
+                                                                     torch.Tensor]:
+    out = {}
+    for name, path in lm_state_names(cfg).items():
+        leaf = tree_np
+        for key in path:
+            leaf = leaf[key]
+        out[name] = _leaf_tensor(leaf, dtype, dev)
+    return out
+
+
+def adamw_state_from(ref_state: Any, cfg,
+                     device: Union[None, str, torch.device] = None):
+    """A reference AdamW state of a ``cfg`` model (its ``OptState``:
+    ``step``, and ``master``, ``m``, ``v`` pytrees shaped as the
+    parameters, leaves as numpy float32) as the port's ``OptState``: the
+    step an int32 scalar on the host, the rest float32 tensors on
+    ``device`` (None: the card) keyed by the port's parameter names."""
+    from .kernels.backend import resolve_device
+    from .optim.adamw import OptState
+    dev = resolve_device(device)
+    step_, master, m, v = ref_state
+    return OptState(
+        step=torch.tensor(int(np.asarray(step_)), dtype=torch.int32),
+        master=_lm_leaves(master, cfg, torch.float32, dev),
+        m=_lm_leaves(m, cfg, torch.float32, dev),
+        v=_lm_leaves(v, cfg, torch.float32, dev))

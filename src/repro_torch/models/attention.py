@@ -1,5 +1,5 @@
-"""Attention: blockwise flash (prefill and the full-sequence forward) and
-cached decode, GQA and sliding-window aware. Forward only.
+"""Attention: blockwise flash (prefill, the full-sequence forward and its
+backward) and cached decode, GQA and sliding-window aware.
 
 The flash path keeps the reference's structure: an outer loop over
 query blocks, grouped into lanes as the reference groups them, and an
@@ -9,9 +9,19 @@ sum in float32. Scores and the value product compute in float32 from
 the operands as given (a bf16 product is exact in float32, as the
 reference's ``preferred_element_type=float32`` is); the output is
 rounded to ``q``'s dtype.
+
+The backward is the reference's custom VJP: the forward keeps ``(q, k,
+v, out, lse)`` and the backward walks the same lanes and tiles (the
+same skipping), recomputing each tile's probabilities from ``lse`` in
+float32 and accumulating dk and dv block by block. The forward of a
+pass that records autograd runs as the operator ``repro_torch::
+flash_fwd``, so that a selective-checkpoint policy can keep its output
+(``models.lm``'s ``remat="attn_out"``).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -78,7 +88,8 @@ def _lane_bounds(blk_lo, blk_hi, *, q_offset, block_q, block_k, n_k,
 
 
 def _flash_fwd(q, k, v, causal, window, q_offset, block_q, block_k):
-    """Returns out (B, Sq, Hq, hd) in q's dtype."""
+    """Returns (out (B, Sq, Hq, hd) in q's dtype, lse (B, Hkv, G, Sq)
+    float32)."""
     b, sq, hq, hd = q.shape
     _, skv, hkv, _ = k.shape
     g = hq // hkv
@@ -88,7 +99,7 @@ def _flash_fwd(q, k, v, causal, window, q_offset, block_q, block_k):
     # lane-major layout: lane l holds blocks l*n_outer + o
     qb = q.reshape(b, lanes, n_outer, block_q, hkv, g, hd)
     lane_ids = torch.arange(lanes, device=q.device)
-    outs = []
+    outs, lses = [], []
     for oi in range(n_outer):
         q_tile = qb[:, :, oi]                          # (b,L,bq,hkv,g,hd)
         blk = lane_ids * n_outer + oi                  # (L,)
@@ -110,11 +121,99 @@ def _flash_fwd(q, k, v, causal, window, q_offset, block_q, block_k):
             m, l, acc = kv_tile_update((m, l, acc), q_tile, k[:, sl],
                                        v[:, sl], q_pos, k_pos, scale,
                                        causal, window)
-        out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.to(q.dtype))                   # (b,L,hkv,g,bq,hd)
+        l = torch.clamp(l, min=1e-30)
+        outs.append((acc / l[..., None]).to(q.dtype))  # (b,L,hkv,g,bq,hd)
+        lses.append(m + torch.log(l))                  # (b,L,hkv,g,bq)
     # (n_outer, b, L, hkv, g, bq, hd) -> (b, sq, hq, hd)
     out = torch.stack(outs).permute(1, 2, 0, 5, 3, 4, 6)
-    return out.reshape(b, sq, hq, hd)
+    # (n_outer, b, L, hkv, g, bq) -> (b, hkv, g, sq)
+    lse = torch.stack(lses).permute(1, 3, 4, 2, 0, 5)
+    return out.reshape(b, sq, hq, hd), lse.reshape(b, hkv, g, sq)
+
+
+def _flash_bwd_impl(q, k, v, out, lse, dout, causal, window, q_offset,
+                    block_q, block_k):
+    """Blockwise flash backward: the forward's lanes and tile bounds,
+    float32 tiles, dk and dv accumulated block by block. Returns (dq,
+    dk, dv) in the dtypes of q, k, v."""
+    b, sq, hq, hd = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    scale = hd ** -0.5
+    n_q, n_k = sq // block_q, skv // block_k
+    lanes, n_outer = _factor_blocks(n_q)
+    qb = q.reshape(b, lanes, n_outer, block_q, hkv, g, hd)
+    dob = dout.reshape(b, lanes, n_outer, block_q, hkv, g, hd)
+    ob = out.reshape(b, lanes, n_outer, block_q, hkv, g, hd)
+    lseb = lse.reshape(b, hkv, g, lanes, n_outer, block_q)
+    lane_ids = torch.arange(lanes, device=q.device)
+    dk = torch.zeros((b, skv, hkv, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dqs = []
+    for oi in range(n_outer):
+        q_tile = qb[:, :, oi]                                # (b,L,bq,h,g,d)
+        do_t = dob[:, :, oi].float().permute(0, 1, 3, 4, 2, 5)
+        o_t = ob[:, :, oi].float().permute(0, 1, 3, 4, 2, 5)  # (b,L,h,g,q,d)
+        lse_t = lseb[:, :, :, :, oi].permute(0, 3, 1, 2, 4)   # (b,L,h,g,q)
+        d_t = torch.sum(do_t * o_t, dim=-1)
+        blk = lane_ids * n_outer + oi
+        q_pos = (q_offset + blk[:, None] * block_q
+                 + torch.arange(block_q, device=q.device)[None])  # (L,bq)
+        lo, hi = _lane_bounds(oi, (lanes - 1) * n_outer + oi,
+                              q_offset=q_offset, block_q=block_q,
+                              block_k=block_k, n_k=n_k, causal=causal,
+                              window=window)
+        dq_t = torch.zeros((b, lanes, hkv, g, block_q, hd),
+                           dtype=torch.float32, device=q.device)
+        for ki in range(lo, hi):
+            sl = slice(ki * block_k, (ki + 1) * block_k)
+            k_tile, v_tile = k[:, sl], v[:, sl]
+            k_pos = torch.arange(ki * block_k, (ki + 1) * block_k,
+                                 device=q.device)
+            s = _tile_scores(q_tile, k_tile, scale)   # (b,L,hkv,g,bq,bk)
+            mask = _tile_mask(q_pos, k_pos, causal, window)
+            s = torch.where(mask[None, :, None, None], s, NEG_INF)
+            p = torch.exp(s - lse_t[..., None])
+            dv_blk = torch.einsum("blhgqk,blhgqd->bkhd", p, do_t)
+            dp = torch.einsum("blhgqd,bkhd->blhgqk", do_t, v_tile.float())
+            ds = p * (dp - d_t[..., None]) * scale
+            dq_t = dq_t + torch.einsum("blhgqk,bkhd->blhgqd", ds,
+                                       k_tile.float())
+            dk_blk = torch.einsum("blhgqk,blqhgd->bkhd", ds, q_tile.float())
+            dk[:, sl] += dk_blk
+            dv[:, sl] += dv_blk
+        dqs.append(dq_t)
+    # (n_outer, b, L, hkv, g, bq, hd) -> (b, sq, hq, hd)
+    dq = torch.stack(dqs).permute(1, 2, 0, 5, 3, 4, 6).reshape(b, sq, hq, hd)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, window: int, q_offset: int, block_q: int,
+                 block_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_flash_fwd` as one operator (what a selective-checkpoint
+    policy sees and can keep)."""
+    return _flash_fwd(q, k, v, causal, window, q_offset, block_q, block_k)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash forward, keeping ``(q, k, v, out, lse)``, and the
+    blockwise backward (the reference's ``_flash`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, block_q, block_k):
+        out, lse = flash_fwd_op(q, k, v, causal, window, q_offset, block_q,
+                                block_k)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.plan = (causal, window, q_offset, block_q, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(q, k, v, out, lse, dout, *ctx.plan)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _pick_block(s: int, target: int) -> int:
@@ -140,11 +239,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_k: int = 512) -> torch.Tensor:
     """q: (B, Sq, Hq, hd); k,v: (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd).
 
-    Blockwise flash with causal and sliding-window tile skipping.
-    ``q_offset``: absolute position of q[0].
+    Blockwise flash with causal and sliding-window tile skipping in the
+    forward and, when autograd records (:class:`FlashAttention`), in the
+    backward. ``q_offset``: absolute position of q[0].
     """
     block_q, block_k = block_plan(q.shape[1], k.shape[1], block_q, block_k)
-    return _flash_fwd(q, k, v, causal, window, q_offset, block_q, block_k)
+    plan = (causal, window, q_offset, block_q, block_k)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, *plan)
+    return _flash_fwd(q, k, v, *plan)[0]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -18,7 +18,8 @@ from torch import nn
 
 def weight(shape, device, dtype: torch.dtype = torch.bfloat16
            ) -> nn.Parameter:
-    """An uninitialised, frozen parameter (the port is forward only)."""
+    """An uninitialised parameter, frozen until a trainer opens it to
+    autograd (``module.requires_grad_()``)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 

@@ -1,12 +1,11 @@
-"""Causal language model covering the repository's ten architectures
-(forward only).
+"""Causal language model covering the repository's ten architectures.
 
 One module, ``CausalLM(cfg)``, with one submodule per layer, and plain
 functions under the reference's names:
 
     init_params(cfg, generator, device=None)      -> model
     forward(cfg, model, batch)                    -> logits (B, S, V) fp32
-    forward_train(cfg, model, batch)              -> (loss, metrics)
+    forward_train(cfg, model, batch, flags)       -> (total, metrics)
     prefill(cfg, model, batch, pad_to=0)          -> (last_logits, cache)
     decode_step(cfg, model, cache, token, pos)    -> (logits, cache)
 
@@ -32,15 +31,26 @@ for the recurrent kinds; the encoder-decoder appends ``{"cross": {"k",
 "v"}}`` (L, B, S_enc, Hkv, hd). ``decode_step`` writes the new key and
 value into the ring slot ``pos % S_c``, and the new recurrent states
 over the old, in place, and returns the same cache.
+
+Training: the parameters are created frozen; ``model.requires_grad_()``
+opens them to autograd, and ``forward_train(...)[0].backward()`` gives
+every one a gradient. The layers run unit by unit, a unit being one
+repeat of a layer group's pattern (the reference's scan body): in train
+mode each unit ends in :func:`grad_cast_bf16`, and ``RunFlags.remat``
+recomputes a unit in the backward (``"full"``) or everything in it but
+the flash attention's output (``"attn_out"``); neither changes a bit of
+the loss or the gradients.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from . import rglru as rg
@@ -433,42 +443,130 @@ def _layer_cache(cache, gi, j, r):
 # full-model passes
 # ---------------------------------------------------------------------------
 
-def _run_layers(cfg, model: CausalLM, x, positions, mode, cache=None,
-                cross_kv=None):
-    """Every layer in order. ``cross_kv``: the decoder's stacked cross
-    (k, v) (the encoder-decoder has one decoder group). Returns (x,
-    aux_total, prefill entries by (group, unit) as lists over repeats);
-    in decode mode the recurrent states are written into ``cache``."""
+@dataclasses.dataclass(frozen=True)
+class RunFlags:
+    """``remat``: "none", "full" (a unit keeps nothing for its backward
+    and is recomputed) or "attn_out" (a unit keeps only its flash
+    attentions' outputs). ``scan_layers`` is accepted for the
+    reference's signature: the port has one submodule a layer and runs
+    them in a Python loop either way."""
+    remat: str = "attn_out"
+    scan_layers: bool = True
+
+
+class GradCastBf16(torch.autograd.Function):
+    """Identity forward; the cotangent leaves in bf16 (the reference's
+    ``grad_cast_bf16`` barrier at the end of each unit)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16)
+
+
+def grad_cast_bf16(x: torch.Tensor) -> torch.Tensor:
+    return GradCastBf16.apply(x)
+
+
+def _keep_attn_out(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="attn_out"``: keep the
+    flash forward's outputs, recompute everything else."""
+    if op == torch.ops.repro_torch.flash_fwd.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, flags: "RunFlags"):
+    """``fn`` under the remat policy of ``flags`` (the reference's
+    ``jax.checkpoint`` with ``nothing_saveable`` or
+    ``save_only_these_names("attn_out")``)."""
+    if flags.remat == "none":
+        return fn
+    if flags.remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if flags.remat == "attn_out":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _keep_attn_out))
+    raise ValueError(f"unknown remat policy {flags.remat!r}")
+
+
+def _units(cfg):
+    """(group, repeat, [(index into the layers, unit position)]) of each
+    unit in execution order (``layer_slots`` grouped by unit)."""
+    i = 0
+    for gi, (unit, reps) in enumerate(layer_groups(cfg)):
+        for r in range(reps):
+            yield gi, r, [(i + j, j) for j in range(len(unit))]
+            i += len(unit)
+
+
+def _run_layers(cfg, layers, x, positions, mode, cache=None,
+                cross_kv=None, flags: Optional["RunFlags"] = None,
+                causal=True):
+    """Every layer of ``layers`` (the model's, or the encoder's under
+    ``encoder_config``) in order, unit by unit. ``cross_kv``: the
+    decoder's stacked cross (k, v) (the encoder-decoder has one decoder
+    group). Returns (x, aux_total, prefill entries by (group, unit) as
+    lists over repeats); in decode mode the recurrent states are written
+    into ``cache``. In train mode each unit ends in
+    :func:`grad_cast_bf16` and runs under ``flags``' remat policy."""
+    flags = flags or RunFlags()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     entries: Dict[Tuple[int, int], list] = {}
-    for blk, (gi, j, r, _) in zip(model.layers, layer_slots(cfg)):
-        c = _layer_cache(cache, gi, j, r) if mode == "decode" else None
+    train = mode == "train"
+    # autograd records this pass: remat and the cotangent casts apply
+    recording = train and torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in layers.parameters()))
+    for gi, r, unit in _units(cfg):
         xkv = ((cross_kv[0][r], cross_kv[1][r])
                if cross_kv is not None and gi == 0 else None)
-        x, aux, new_c = apply_layer(cfg, blk, x, positions, mode, c, xkv)
-        if aux is not None:
-            aux_total = aux_total + aux
-        if new_c is None:
+        if train:
+            def body(xu, unit=unit, xkv=xkv):
+                auxes = []
+                for i, _ in unit:
+                    xu, aux, _ = apply_layer(cfg, layers[i], xu, positions,
+                                             mode, None, xkv, causal)
+                    auxes.append(aux)
+                return xu, auxes
+
+            if recording:
+                x, auxes = _maybe_remat(body, flags)(x)
+                x = grad_cast_bf16(x)
+            else:
+                x, auxes = body(x)
+            for aux in auxes:
+                if aux is not None:
+                    aux_total = aux_total + aux
             continue
-        if mode == "decode":                  # a recurrent state
-            for dst, src in zip(c, new_c):
-                dst.copy_(src)
-        else:
-            entries.setdefault((gi, j), []).append(new_c)
+        for i, j in unit:
+            c = _layer_cache(cache, gi, j, r) if mode == "decode" else None
+            x, _, new_c = apply_layer(cfg, layers[i], x, positions, mode, c,
+                                      xkv, causal)
+            if new_c is None:
+                continue
+            if mode == "decode":                  # a recurrent state
+                for dst, src in zip(c, new_c):
+                    dst.copy_(src)
+            else:
+                entries.setdefault((gi, j), []).append(new_c)
     return x, aux_total, entries
 
 
-def _encode(cfg, model: CausalLM, frames):
+def _encode(cfg, model: CausalLM, frames, flags=None):
     """The whisper encoder (the conv frontend is a stub: frames are
-    embeddings): frames + sinusoidal positions, non-causal "attn" blocks,
-    the encoder's norm."""
+    embeddings): frames + sinusoidal positions, non-causal "attn" blocks
+    (in train mode, as the reference runs them), the encoder's norm."""
     b, senc, _ = frames.shape
     pos = torch.arange(senc, device=frames.device)[None].expand(b, senc)
     x = frames.to(torch.bfloat16) + sinusoidal_pos(pos, cfg.d_model).to(
         torch.bfloat16)
-    enc_cfg = encoder_config(cfg)
-    for blk in model.enc_layers:
-        x, _, _ = apply_layer(enc_cfg, blk, x, pos, "train", causal=False)
+    x, _, _ = _run_layers(encoder_config(cfg), model.enc_layers, x, pos,
+                          "train", flags=flags, causal=False)
     return _norm(cfg, model.enc_norm, x)
 
 
@@ -503,15 +601,37 @@ def _input_embeds(cfg, model: CausalLM, batch, positions):
     return x
 
 
+class _F32Product(torch.autograd.Function):
+    """The card's bf16 product with a float32 result; its backward is
+    the CPU form's: float32 products of the float32 cotangent, rounded
+    to the operands' dtypes (as the reference's transposes round)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        flat = x.reshape(-1, x.shape[-1])
+        return torch.mm(flat, w, out_dtype=torch.float32).reshape(
+            *x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gf = g.reshape(-1, g.shape[-1])
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (gf @ w.float().t()).to(x.dtype).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = (x.reshape(-1, x.shape[-1]).float().t() @ gf).to(w.dtype)
+        return dx, dw
+
+
 def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for bf16 operands with a float32 result (the reference's
     ``preferred_element_type=float32``): on the card one bf16 product
     that writes float32; on the CPU, which has no such product, the
     operands widened to float32 (their products are exact there)."""
     if x.is_cuda:
-        flat = x.reshape(-1, x.shape[-1])
-        return torch.mm(flat, w, out_dtype=torch.float32).reshape(
-            *x.shape[:-1], w.shape[-1])
+        return _F32Product.apply(x, w)
     return x.float() @ w.float()
 
 
@@ -532,34 +652,37 @@ def lm_loss(cfg, logits, labels):
     return torch.sum((logz - ll) * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
-def _cross_of(cfg, model: CausalLM, batch):
+def _cross_of(cfg, model: CausalLM, batch, flags=None):
     """The decoder's cross (k, v) from ``batch["frames"]`` (None unless
     the model is an encoder-decoder)."""
     if not cfg.is_encoder_decoder:
         return None
-    return _project_cross(cfg, model, _encode(cfg, model, batch["frames"]))
+    return _project_cross(cfg, model, _encode(cfg, model, batch["frames"],
+                                              flags))
 
 
-def _forward(cfg, model: CausalLM, batch):
-    cross_kv = _cross_of(cfg, model, batch)
+def _forward(cfg, model: CausalLM, batch, flags=None):
+    cross_kv = _cross_of(cfg, model, batch, flags)
     positions = _positions_for(cfg, batch)
     x = _input_embeds(cfg, model, batch, positions)
-    x, aux, _ = _run_layers(cfg, model, x, positions, "train",
-                            cross_kv=cross_kv)
+    x, aux, _ = _run_layers(cfg, model.layers, x, positions, "train",
+                            cross_kv=cross_kv, flags=flags)
     x = _norm(cfg, model.final_norm, x)
     return logits_fn(cfg, model, x), aux
 
 
 def forward(cfg: ModelConfig, model: CausalLM, batch) -> torch.Tensor:
     """The full-sequence forward (the reference's training pass without
-    its backward): logits (B, S, V) fp32."""
+    its loss): logits (B, S, V) fp32."""
     return _forward(cfg, model, batch)[0]
 
 
-def forward_train(cfg: ModelConfig, model: CausalLM, batch):
-    """batch: tokens/labels (+frames|patches). Returns (loss, metrics),
-    forward only (the backward waits for the training slice)."""
-    logits, aux = _forward(cfg, model, batch)
+def forward_train(cfg: ModelConfig, model: CausalLM, batch,
+                  flags: RunFlags = RunFlags()):
+    """batch: tokens/labels (+frames|patches). Returns (total, {"loss",
+    "aux"}): the mean cross-entropy plus 0.01 times the MoE
+    load-balancing loss; ``total.backward()`` differentiates it."""
+    logits, aux = _forward(cfg, model, batch, flags)
     loss = lm_loss(cfg, logits, batch["labels"])
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
@@ -576,8 +699,8 @@ def prefill(cfg: ModelConfig, model: CausalLM, batch, pad_to: int = 0):
     positions = _positions_for(cfg, batch)
     s_in = positions.shape[1]
     x = _input_embeds(cfg, model, batch, positions)
-    x, _, entries = _run_layers(cfg, model, x, positions, "prefill",
-                                cross_kv=cross_kv)
+    x, _, entries = _run_layers(cfg, model.layers, x, positions,
+                                "prefill", cross_kv=cross_kv)
     cache = []
     for gi, (unit, _) in enumerate(layer_groups(cfg)):
         group = {}
@@ -609,7 +732,7 @@ def decode_step(cfg: ModelConfig, model: CausalLM, cache, token, pos):
     if cfg.is_encoder_decoder:
         cross = cache[-1]["cross"]
         cross_kv = (cross["k"], cross["v"])
-    x, _, _ = _run_layers(cfg, model, x, positions, "decode", cache,
+    x, _, _ = _run_layers(cfg, model.layers, x, positions, "decode", cache,
                           cross_kv)
     x = _norm(cfg, model.final_norm, x)
     return logits_fn(cfg, model, x)[:, 0], cache

@@ -10,9 +10,12 @@ optimizer state, and a parameter of a narrower dtype gets the master
 cast down.
 
 :func:`update` is the functional form over ``{name: tensor}`` dicts
-(the reference's ``update`` with names for its tree paths);
-:class:`AdamW` is the same as a ``torch.optim.Optimizer`` over named
-parameters. Every scalar (step, learning rate, norm, bias corrections)
+(the reference's ``update`` with names for its tree paths): it returns
+a new state and keeps the old. :func:`update_` is the same step in
+place, the form the training driver and :class:`AdamW` (a
+``torch.optim.Optimizer`` over named parameters) take: a float32 state
+is 12 bytes a parameter, and two of them do not fit beside a 3B
+model. Every scalar (step, learning rate, norm, bias corrections)
 is float32. The step count and what depends on it alone (learning
 rate, bias corrections) are computed on the host and copied to the
 parameters' device; a step reads nothing back. Sums (the global norm)
@@ -25,7 +28,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Iterable, Mapping, NamedTuple, Tuple, Union
+from typing import (Dict, Iterable, Mapping, NamedTuple, Optional, Tuple,
+                    Union)
 
 import torch
 
@@ -121,12 +125,11 @@ def init(params: Mapping[str, torch.Tensor]) -> OptState:
            for k, p in params.items()})
 
 
-def update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor],
-           state: OptState, params: Mapping[str, torch.Tensor]
-           ) -> Tuple[Dict[str, torch.Tensor], OptState,
-                      Dict[str, torch.Tensor]]:
-    """Returns ``(new_params, new_state, metrics)``; ``params`` gives
-    each parameter's dtype (the master copy is float32)."""
+def _prologue(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor],
+              state: OptState):
+    """The next step count (on the host) and, on the gradients' device,
+    the learning rate and the two bias corrections of that step, the
+    global gradient norm and the clipping scale."""
     step = state.step.cpu() + 1
     sf = step.to(torch.float32)
     dev = next(iter(grads.values())).device
@@ -136,23 +139,74 @@ def update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor],
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
+    return step, (lr, b1c, b2c, scale), gnorm
+
+
+def _leaf_update(cfg: AdamWConfig, g, m, v, p, decay: bool, scalars):
+    """One parameter's new (master, m, v), float32."""
+    lr, b1c, b2c, scale = scalars
+    g = g.to(torch.float32) * scale
+    m = cfg.b1 * m + (1 - cfg.b1) * g
+    v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
+    delta = (m / b1c) / (sqrt_rn(v / b2c) + cfg.eps)
+    if decay:
+        delta = delta + cfg.weight_decay * p
+    return p - lr * delta, m, v
+
+
+def _decays(grads, decay: Optional[Mapping[str, bool]]) -> Dict[str, bool]:
+    return {k: (_decay_mask(k) if decay is None else bool(decay[k]))
+            for k in grads}
+
+
+def update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor],
+           state: OptState, params: Mapping[str, torch.Tensor],
+           decay: Optional[Mapping[str, bool]] = None
+           ) -> Tuple[Dict[str, torch.Tensor], OptState,
+                      Dict[str, torch.Tensor]]:
+    """The functional step: returns ``(new_params, new_state, metrics)``
+    and leaves ``state`` and ``params`` as they were (so the old and the
+    new state are alive together; :func:`update_` writes in place).
+    ``params`` gives each parameter's dtype (the master copy is
+    float32); ``decay`` says per name whether weight decay applies
+    (default: :func:`_decay_mask` of the name)."""
+    step, scalars, gnorm = _prologue(cfg, grads, state)
     master, m_out, v_out = {}, {}, {}
-    for k in grads:
-        g = grads[k].to(torch.float32) * scale
-        m = cfg.b1 * state.m[k] + (1 - cfg.b1) * g
-        v = cfg.b2 * state.v[k] + (1 - cfg.b2) * torch.square(g)
-        delta = (m / b1c) / (sqrt_rn(v / b2c) + cfg.eps)
-        p = state.master[k]
-        if _decay_mask(k):
-            delta = delta + cfg.weight_decay * p
-        master[k], m_out[k], v_out[k] = p - lr * delta, m, v
+    for k, d in _decays(grads, decay).items():
+        master[k], m_out[k], v_out[k] = _leaf_update(
+            cfg, grads[k], state.m[k], state.v[k], state.master[k], d,
+            scalars)
     new_params = {k: master[k].to(params[k].dtype) for k in master}
     return (new_params, OptState(step, master, m_out, v_out),
-            {"grad_norm": gnorm, "lr": lr})
+            {"grad_norm": gnorm, "lr": scalars[0]})
+
+
+@torch.no_grad()
+def update_(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor],
+            state: OptState, params: Mapping[str, torch.Tensor],
+            decay: Optional[Mapping[str, bool]] = None
+            ) -> Tuple[OptState, Dict[str, torch.Tensor]]:
+    """:func:`update` in place, with the same bits: each parameter's
+    master copy, moments and the parameter itself are overwritten one
+    parameter at a time, so at most one parameter's temporaries are
+    alive beside the state (the reference donates its buffers instead).
+    Returns ``(state with the step advanced, metrics)``; the state's
+    dicts are the same objects as before."""
+    step, scalars, gnorm = _prologue(cfg, grads, state)
+    for k, d in _decays(grads, decay).items():
+        p, m, v = _leaf_update(cfg, grads[k], state.m[k], state.v[k],
+                               state.master[k], d, scalars)
+        state.m[k].copy_(m)
+        state.v[k].copy_(v)
+        state.master[k].copy_(p)
+        params[k].copy_(p)
+        del p, m, v             # before the next parameter's temporaries
+    return state._replace(step=step), {"grad_norm": gnorm,
+                                       "lr": scalars[0]}
 
 
 class AdamW(torch.optim.Optimizer):
-    """:func:`update` as an optimizer over named parameters.
+    """:func:`update_` as an optimizer over named parameters.
 
     ``params`` is a module, a ``{name: parameter}`` dict or
     ``(name, parameter)`` pairs: the names decide the weight decay
@@ -186,8 +240,6 @@ class AdamW(torch.optim.Optimizer):
         params = dict(zip(group["names"], group["params"]))
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in params.items()}
-        new, self._opt_state, self.metrics = update(
+        self._opt_state, self.metrics = update_(
             self.cfg, grads, self._opt_state, params)
-        for n, p in params.items():
-            p.copy_(new[n])
         return loss

@@ -1156,3 +1156,93 @@ def test_paper_mining_first_barrier_replays_equal_eager(cuda):
     assert info["equal"], info
     assert info["mining_runs"] == 4 and info["lanes_mined"] == 2
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,window,q_offset", [(128, 128, 0, 0),
+                                                    (256, 256, 40, 0),
+                                                    (32, 96, 0, 64)])
+def test_flash_backward_on_the_card_matches_the_cpu(cuda, sq, skv, window,
+                                                     q_offset):
+    """The flash forward and its blockwise backward (bf16 operands) on
+    the card and the CPU from the same inputs: within 2e-2."""
+    from repro_torch.models.attention import flash_attention
+    gen = torch.Generator().manual_seed(sq + window)
+    q = torch.randn((2, sq, 4, 32), generator=gen).bfloat16()
+    k, v = (torch.randn((2, skv, 2, 32), generator=gen).bfloat16()
+            for _ in range(2))
+    dout = torch.randn((2, sq, 4, 32), generator=gen).bfloat16()
+
+    def run(dev):
+        leaves = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention(*leaves, window=window, q_offset=q_offset)
+        return [out.detach(), *torch.autograd.grad(out, leaves,
+                                                   dout.to(dev))]
+
+    for card, cpu in zip(run(cuda), run("cpu"), strict=True):
+        assert card.dtype == torch.bfloat16
+        np.testing.assert_allclose(card.float().cpu().numpy(),
+                                   cpu.float().numpy(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_inplace_adamw_step_on_the_card_equals_the_cpu(cuda):
+    """Three in-place AdamW steps over a reduced model's parameters (bf16
+    weights, the float32 router, decay on the embedding) from the same
+    gradients: the same bits on the card and the CPU."""
+    from repro_torch.configs import ARCHS, reduced_config
+    from repro_torch.launch.steps import lm_decay
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    cfg = reduced_config(ARCHS["qwen2-moe-a2.7b"])
+    model = lm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    grads = [{n: torch.randn(p.shape, generator=gen).to(p.dtype)
+              for n, p in model.named_parameters()} for _ in range(3)]
+    opt_cfg = adamw.AdamWConfig(total_steps=6, warmup_steps=2)
+
+    def run(dev):
+        params = {n: p.detach().clone().to(dev)
+                  for n, p in model.named_parameters()}
+        state = adamw.init(params)
+        for g in grads:
+            state, m = adamw.update_(opt_cfg, {n: t.to(dev) for n, t in
+                                               g.items()}, state, params,
+                                     lm_decay(cfg))
+        return params, state, m
+
+    (pc, sc, mc), (pp, sp, mp) = run(cuda), run("cpu")
+    assert torch.equal(mc["grad_norm"].cpu(), mp["grad_norm"])
+    for n in pp:
+        assert torch.equal(pc[n].cpu(), pp[n]), n
+        for leaf in ("master", "m", "v"):
+            assert torch.equal(getattr(sc, leaf)[n].cpu(),
+                               getattr(sp, leaf)[n]), (leaf, n)
+
+
+@pytest.mark.cuda
+def test_readahead_on_the_card_counts_its_launches(cuda):
+    """The data pipeline's MITHRIL readahead on the card: counters and
+    staged set equal to the CPU's, one miss launch a miss, one lookup a
+    mining run."""
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    mcfg = MithrilConfig(min_support=2, max_support=8, lookahead=16,
+                         rec_buckets=128, rec_ways=4, mine_rows=16,
+                         pf_buckets=128, pf_ways=4)
+    cfg = DataConfig(vocab=100, seq_len=8, global_batch=2, n_shards=64,
+                     shard_group=4)
+    cpu = SyntheticPipeline(cfg, mithril_cfg=mcfg, device="cpu")
+    card = SyntheticPipeline(cfg, mithril_cfg=mcfg, device=cuda)
+    before = ops.launch_counts()
+    for step in range(400):
+        cpu.fetch_shard(step)
+        card.fetch_shard(step)
+    n = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    assert card.staged == cpu.staged
+    assert (card.readahead_hits, card.readahead_misses) == \
+        (cpu.readahead_hits, cpu.readahead_misses)
+    mines = int(card._route.state.n_mines[0])
+    assert mines == int(cpu._route.state.n_mines[0]) > 0
+    assert n["mithril_miss_step"] == card.readahead_misses
+    assert n["mithril_mine_step"] == n["hash_lookup"] == mines

@@ -54,7 +54,13 @@ ALONE_MODULES = ["repro_torch.cache.tiered", "repro_torch.launch.serve",
                  "repro_torch.models.lm", "repro_torch.configs",
                  "repro_torch.traces.capture",
                  # the recurrent families
-                 "repro_torch.models.rglru", "repro_torch.models.rwkv6"]
+                 "repro_torch.models.rglru", "repro_torch.models.rwkv6",
+                 # the training path
+                 "repro_torch.data", "repro_torch.data.pipeline",
+                 "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+                 "repro_torch.runtime", "repro_torch.runtime.fault",
+                 "repro_torch.runtime.compress", "repro_torch.launch.train",
+                 "repro_torch.launch.steps"]
 
 
 @pytest.mark.parametrize("name", ALONE_MODULES)
