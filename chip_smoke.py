@@ -162,6 +162,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
    does) on the card: hits, misses and staged set equal to the CPU
    child's, hits at least plain staging's, one miss launch a miss and
    one mining run and one lookup a mining run;
+8c. distribution — ``torch.distributed`` at world size 1: an NCCL
+   group over an in-memory store (no network) and the (1, 1) smoke mesh
+   (``launch.mesh.make_smoke_mesh``): (a) llama3.2-3b at full width and
+   depth, ``main``'s 4 x 32-token prompts and 16 teacher-forced decode
+   steps through the plain ``prefill`` / ``decode_step``, then through
+   ``launch.steps.jit_cell``'s prefill and decode cells on the same
+   weights (now DTensors placed by the spec rules, ``tp_serve`` for
+   decode): logits within rtol = atol = 5e-2 of the plain path's (the
+   largest difference printed; 0 expected at one rank), ms a token of
+   both; (b) the training twin (the embedding, head and 2 layers, 1 x
+   64) one step through ``jit_cell``'s train cell (fsdp) and one of
+   ``make_train_fn`` from equal states: loss and gradient norm within
+   rtol = atol = 1e-3; (c) ``dist.moe_ep.moe_ffn_tp`` and
+   ``moe_ffn_ep`` on the mesh at qwen2-moe-a2.7b's published widths
+   (one layer, 512 tokens) against dense ``moe_ffn``: expert choices
+   equal, logits within 1e-5, outputs within 2e-2; (d)
+   ``compressed_psum`` on the group against int8 quantize-dequantize;
+   (e) ``sweep_scheduled(shard=True)`` (one shard here) and with
+   ``devices=[dev, dev]`` (two lane blocks, each through its own
+   captured-graph runner on the card) against ``shard=False`` for
+   ``mithril-lru`` over the first 2,000 requests of the quick corpus:
+   equal ``Stats`` and hits, and the two-runner sweep launches the
+   record kernel and the mining run (its launches are this phase's
+   main path);
+   (f) the dry run (``launch.dryrun``) of llama3.2-3b ``train_4k`` and
+   ``decode_32k`` on the 256-rank production mesh, in a CPU child (a
+   fake process group cannot share a process with the NCCL one): flops
+   a device against ``model_flops / 256``, collectives by kind;
 9. profile — 300 replayed steps of the real-size sweep under
    ``torch.profiler``: device idle share, kernels a step, and the launch
    counters against the profiler's count of the record kernel and the
@@ -169,7 +197,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 A captured graph calls no Python at replay, so the runner counts each
 graph's launches at its capture and adds them at every replay: the
-counters stay the launches the card ran. The main path is phases 3-8b
+counters stay the launches the card ran. The main path is phases 3-8c
 (4b's windows after its main sweep do not count):
 the launch counters are zeroed just before the parity sweeps and read
 after each of the later phases' main runs (the learned phase's searches
@@ -184,8 +212,11 @@ of the TPU kernels' own contract, are held and timed in phase 2; the
 65,536-block cache, so the real-size sweep records every miss but never
 mines; its barrier launches the mining run with no lane to mine. The
 paper-mining phase's loops overflow the cache, and there it mines.)
-The last lines are the ``kernels`` JSON line, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+Each ``kernels`` row's ``bound_ms`` is the package's touched-byte bound
+(``repro_torch.roofline.touched``) on the inputs this run timed. The
+last lines are the
+``kernels`` JSON line, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -204,7 +235,6 @@ SRC = ROOT / "src"
 BASELINE = ROOT / "results" / "bench" / "BENCH_baseline_quick.json"
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-INT_OPS_PER_S = 67e12         # non-tensor 32-bit rate (the table's fp32 line)
 PAPER_CAPACITY = 65_536       # the paper's 256 MB cache at 4 KB blocks
 PARITY_CAPACITY = 512
 PARITY_LEN = 4_000
@@ -430,14 +460,17 @@ def ptxas_report(log: str, names: str = "paged_decode_(?:split|merge)"
     return rows
 
 
+def touched():
+    """The package's touched-byte kernel bounds
+    (``repro_torch.roofline.touched``): ``bound_ms`` and the least bytes
+    and operations of each launch on this run's inputs."""
+    from repro_torch.roofline import touched as mod
+    return mod
+
+
 def floor_ratio(dev_ms, floor):
     """A kernel's device time over the launch floor (None unmeasured)."""
     return dev_ms / floor if dev_ms and floor else None
-
-
-def bound(bytes_: float, ops: float):
-    t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -449,49 +482,8 @@ RECORD_LEAVES = ("rec_key", "rec_ts", "rec_cnt", "rec_age", "rec_loc",
                  "ts")
 
 
-def record_event_bytes(cfg, st, blk, en) -> float:
-    """Least bytes of one record event on ``st``, which the plain version
-    then advances in place. Reads: every lane's enable flag; for an
-    enabled lane its block, ``ts`` and ``mine_fill`` and the bucket's W
-    keys and ages; for a hit, the slot's cnt, loc and row; for a
-    migration, the slot's R timestamps; for an update of a mining row,
-    its count. Writes: the int32 elements the event changes."""
-    import torch
-    from repro_torch.core.hashindex import arange, bucket_index, first_index
-    from repro_torch.kernels.mithril_record import record_step_plain
-    lanes, w, r = blk.shape[0], cfg.rec_ways, cfg.min_support
-    ar = arange(lanes, blk.device)
-    b = bucket_index(blk, cfg.rec_buckets)
-    hit = st.rec_key[ar, b] == blk[:, None]
-    on = en != 0
-    found = on & hit.any(-1)
-    upd = found & (st.rec_loc[ar, b, first_index(hit)] == 1)
-    before = [getattr(st, f).clone() for f in RECORD_LEAVES]
-    record_step_plain(blk, en, *(getattr(st, f) for f in RECORD_LEAVES))
-    changed = sum(int((getattr(st, f) != x).sum())
-                  for f, x in zip(RECORD_LEAVES, before))
-    mig = int((st.mine_fill != before[RECORD_LEAVES.index("mine_fill")])
-              .sum())
-    reads = (lanes + int(on.sum()) * (3 + 2 * w) + int(found.sum()) * 3
-             + mig * r + int(upd.sum()))
-    return 4.0 * (reads + changed)
-
-
-def record_ops(cfg, n_enabled: int) -> float:
-    w, r, s = cfg.rec_ways, cfg.min_support, cfg.max_support
-    return n_enabled * (16 + 8 * w + 6 * r + 8 * s)
-
-
 def max_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
-
-
-def pairwise_bytes(lanes, n, s, window) -> float:
-    return lanes * (n * s * 4 + n * 4 + n) + lanes * n * window * 4
-
-
-def pairwise_ops(lanes, n, s, window) -> float:
-    return lanes * n * window * s * 3
 
 
 def random_mining(rng, lanes, n, s, r_sup, valid_frac=0.8):
@@ -567,7 +559,7 @@ def check_record(cfg, lanes, dev, rng, enabled_frac=1.0, steps=20):
     b.mine_fill.zero_()
     # the bytes of the 33 events cuda_ms times, replayed on a third copy
     c = type(a)(*(x.clone() for x in a))
-    by = statistics.mean(record_event_bytes(cfg, c, blk, en)
+    by = statistics.mean(touched().record_event_bytes(cfg, c, blk, en)
                          for _ in range(33))
     del c
 
@@ -577,8 +569,8 @@ def check_record(cfg, lanes, dev, rng, enabled_frac=1.0, steps=20):
     dev_ms = device_ms(kern, "record_kernel")
     plain_ms = cuda_ms(lambda: record_step_plain(
         blk, en, *(getattr(b, f) for f in RECORD_LEAVES)))
-    return (ms, plain_ms, by, record_ops(cfg, int(en.sum())), dev_ms, err,
-            host_ms(kern, reps=100))
+    return (ms, plain_ms, by, touched().record_ops(cfg, int(en.sum())),
+            dev_ms, err, host_ms(kern, reps=100))
 
 
 def check_pairwise(lanes, n, s, delta, window, dev, rng, r_sup=4,
@@ -611,8 +603,9 @@ def check_pairwise(lanes, n, s, delta, window, dev, rng, r_sup=4,
     dev_ms = device_ms(kern, "pairwise_codes_kernel")
     plain_ms = cuda_ms(lambda: pairwise_codes_batched_plain(
         ts, cnt, valid, delta, window), reps=10)
-    return ms, plain_ms, pairwise_bytes(lanes, n, s, window), \
-        pairwise_ops(lanes, n, s, window), int((want > 0).sum()), dev_ms, \
+    tb = touched()
+    return ms, plain_ms, tb.pairwise_bytes(lanes, n, s, window), \
+        tb.pairwise_ops(lanes, n, s, window), int((want > 0).sum()), dev_ms, \
         err, host_ms(kern, reps=100)
 
 
@@ -675,65 +668,6 @@ def random_mine_state(cfg, lanes, dev, rng, valid_frac=0.85):
     return st
 
 
-def mine_step_work(cfg, st, need):
-    """Least bytes and operations of one mining run on ``st`` (the
-    state is not changed). Bytes read: the need flags; for a lane that
-    mines, its counts and blocks, the live timestamps of its valid rows,
-    the scalars, per prefetch bucket the pairs touch its W keys and ages
-    and one way's P values and count, and the rec_loc of the recording
-    buckets of its mined blocks (a record event leaves rec_loc = 1 only
-    on a slot that holds a mined block, in the block's bucket) plus any
-    other slot with rec_loc = 1. Bytes written: the int32 elements the
-    run changes. Operations: a compare per sort step (N log2 N), 4 per
-    row pair the window examines (both valid), 3 per live aligned
-    timestamp of a pair with equal counts."""
-    import math
-    import torch
-    from repro_torch.core.hashindex import bucket_index
-    from repro_torch.core.mining import (associations_dense_batched,
-                                         sort_by_first_ts)
-    from repro_torch.kernels.mithril_mine_step import mine_step_plain
-    nd = need.bool()
-    lanes, n = st.mine_cnt.shape
-    w = cfg.window
-    blk, _, cnt, valid = sort_by_first_ts(st.mine_block, st.mine_ts,
-                                          st.mine_cnt, cfg.min_support,
-                                          cfg.max_support)
-    live = torch.where(valid, cnt, 0)
-    reads = int(nd.sum()) * (2 * n + 5) + int(live[nd].sum())
-    src, dst, ok, _ = associations_dense_batched(
-        st.mine_block, st.mine_ts, st.mine_cnt, cfg.min_support,
-        cfg.max_support, cfg.lookahead, w, cfg.pairs_cap)
-    keys = [src] + ([dst] if cfg.symmetric else [])
-    buckets = 0
-    for lane in torch.nonzero(nd).flatten().tolist():
-        got = torch.cat([k[lane][ok[lane]] for k in keys])
-        buckets += int(torch.unique(bucket_index(got, cfg.pf_buckets))
-                       .numel())
-        mined = st.mine_block[lane, :min(int(st.mine_fill[lane]), n)]
-        rec = torch.unique(bucket_index(mined, cfg.rec_buckets))
-        outside = torch.ones(cfg.rec_buckets, dtype=torch.bool,
-                             device=nd.device)
-        outside[rec] = False
-        reads += rec.numel() * cfg.rec_ways + int(
-            (st.rec_loc[lane][outside] == 1).sum())
-    reads += buckets * (2 * cfg.pf_ways + cfg.prefetch_list + 1)
-    after = type(st)(*(x.clone() for x in st))
-    mine_step_plain(cfg, after, nd)
-    changed = sum(int((getattr(after, f) != getattr(st, f)).sum())
-                  for f in MINE_LEAVES)
-    idx = (torch.arange(n, device=cnt.device)[:, None]
-           + torch.arange(1, w + 1, device=cnt.device)[None])
-    inside = idx < n
-    idx = idx.clamp(max=n - 1)
-    pair = valid[..., :, None] & valid[..., idx] & inside      # (L, N, W)
-    same = pair & (cnt[..., :, None] == cnt[..., idx])
-    ops = (int(nd.sum()) * n * max(1.0, math.log2(max(n, 2)))
-           + 4.0 * int(pair[nd].sum())
-           + 3.0 * int(torch.where(same, cnt[..., :, None], 0)[nd].sum()))
-    return lanes + 4.0 * (reads + changed), ops, int(ok[nd].sum())
-
-
 def check_mine_step(cfg, lanes, dev, rng, need_frac=1.0, timed=False,
                     plain_reps=10, valid_frac=0.85):
     """The fused mining run against ``mine_step_plain`` on copies of a
@@ -777,7 +711,7 @@ def check_mine_step(cfg, lanes, dev, rng, need_frac=1.0, timed=False,
     dev_ms = device_ms(lambda: (restore(), kern()), "mine_step_kernel")
     plain_ms, _ = fresh_ms(lambda: mine_step_plain(cfg, work, need),
                            restore, reps=plain_reps, warm=1)
-    by, ops, pairs = mine_step_work(cfg, base, need)
+    by, ops, pairs = touched().mine_step_work(cfg, base, need)
     out.update(ms=ms, host_ms=hms, device_ms=dev_ms, plain_ms=plain_ms,
                bytes=by, ops=ops, pairs_kept=pairs)
     return out
@@ -795,28 +729,6 @@ DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 DECODE_BF16_ROUNDING = {"atol": 2e-5, "rtol": 2.0 ** -6}
 DECODE_SHAPES = [(2, 8, 2, 32, 16, 4), (1, 4, 4, 64, 32, 8),
                  (3, 16, 8, 64, 8, 6), (2, 4, 1, 128, 64, 2)]
-
-
-def decode_bytes(q, pool, tab, lens) -> float:
-    """Least bytes of one decode call: every (page, token) that some
-    row's length reaches, K and V of every kv head, read once; q, the
-    page table and lengths read, the output written."""
-    import torch
-    npg, ps = tab.shape[1], pool.shape[1]
-    pos = (torch.arange(npg, device=tab.device)[:, None] * ps
-           + torch.arange(ps, device=tab.device)[None])       # (npg, ps)
-    live = pos[None] < lens.long()[:, None, None]             # (B, npg, ps)
-    keys = tab.long()[:, :, None] * ps + torch.arange(ps, device=tab.device)
-    n_tok = int(torch.unique(keys[live]).numel())
-    tok_bytes = pool[0, 0].numel() * pool.element_size()
-    return (2.0 * n_tok * tok_bytes + 2 * q.numel() * q.element_size()
-            + 4 * (tab.numel() + lens.numel()))
-
-
-def decode_ops(q, lens) -> float:
-    """Multiply-adds of QK and PV over the positions each row needs."""
-    _, hq, hd = q.shape
-    return 4.0 * hq * hd * float(lens.long().sum())
 
 
 def decode_library(q, k_pool, v_pool, tab, lens):
@@ -905,8 +817,9 @@ def check_decode(shape, dtype, dev, gen, n_total=None, lengths=None,
         else split_ms + (merge_ms or 0.0)
     plain_ms = cuda_ms(lambda: paged_decode_plain(*args), reps=10)
     lib_ms = cuda_ms(lambda: decode_library(*args), reps=10)
-    return err, (ms, plain_ms, decode_bytes(q, kp, tab, lens),
-                 decode_ops(q, lens), dev_ms, lib_ms,
+    tb = touched()
+    return err, (ms, plain_ms, tb.decode_bytes(q, kp, tab, lens),
+                 tb.decode_ops(q, lens), dev_ms, lib_ms,
                  {"plan": plan, "device_ms_split": split_ms,
                   "device_ms_merge": merge_ms})
 
@@ -930,16 +843,6 @@ def lookup_tables(gen, nb, ways, plist, dev, fill=0.7):
     pf_vals = torch.randint(0, 1 << 20, (nb, ways, plist), generator=gen,
                             device=dev).to(torch.int32)
     return pf_key, pf_vals, keys[ok]
-
-
-def lookup_bytes(queries, pf_key, pf_vals) -> float:
-    """Per query: the query, the bucket's W keys, a hit way's P values,
-    the P outputs."""
-    from repro_torch.kernels.hash_lookup import hash_lookup_plain
-    ways, plist = pf_key.shape[1], pf_vals.shape[-1]
-    hits = int((hash_lookup_plain(queries, pf_key, pf_vals) != -1)
-               .any(-1).sum())
-    return 4.0 * (queries.numel() * (1 + ways + plist) + hits * plist)
 
 
 def check_lookup(nb, ways, plist, n_q, dev, gen, timed=False):
@@ -967,9 +870,9 @@ def check_lookup(nb, ways, plist, n_q, dev, gen, timed=False):
     ms = cuda_ms(kern)
     dev_ms = device_ms(kern, "hash_lookup")
     plain_ms = cuda_ms(lambda: hash_lookup_plain(queries, pf_key, pf_vals))
-    # operations: the hash (about 12 integer ops) and W compares a query
-    return err, (ms, plain_ms, lookup_bytes(queries, pf_key, pf_vals),
-                 n_q * (12.0 + ways), dev_ms, None,
+    tb = touched()
+    return err, (ms, plain_ms, tb.lookup_bytes(queries, pf_key, pf_vals),
+                 tb.lookup_ops(n_q, ways), dev_ms, None,
                  {"host_ms": host_ms(kern, reps=100)})
 
 
@@ -998,23 +901,6 @@ def warm_miss_state(cfg, dev, rng, events=400):
         if int(miss_step_plain(page, st, cfg.mine_rows)[0]):
             maybe_mine(cfg, st)
     return st
-
-
-def miss_event_bytes(cfg, st, page) -> float:
-    """Least bytes of one miss on ``st``, which the plain version then
-    advances in place: the record event's (``record_event_bytes``, less
-    the flag and the block, which come by value), the probe's PW keys and
-    a hit way's P values, and the 1 + P ints of the result."""
-    import torch
-    from repro_torch.core.hashindex import bucket_index
-    dev = st.ts.device
-    blk = torch.tensor([page], dtype=torch.int32, device=dev)
-    row = st.pf_key[0, bucket_index(blk, cfg.pf_buckets)]
-    found = bool((row == blk[:, None]).any())
-    by = record_event_bytes(cfg, st, blk,
-                            torch.ones(1, dtype=torch.int32, device=dev))
-    return by - 8.0 + 4.0 * (cfg.pf_ways + cfg.prefetch_list * found
-                             + 1 + cfg.prefetch_list)
 
 
 def check_miss(cfg, dev, rng, events=300):
@@ -1064,7 +950,7 @@ def check_miss(cfg, dev, rng, events=300):
              f"{'seen' if hit_page is not None else 'never seen'}")
     page, reps, warm = hit_page, 200, 5
     d = type(c)(*(x.clone() for x in c))
-    by = statistics.mean(miss_event_bytes(cfg, d, page)
+    by = statistics.mean(touched().miss_event_bytes(cfg, d, page)
                          for _ in range(reps + warm))
     del d
     ms = host_ms(lambda: step(c, page), reps, warm)
@@ -1093,7 +979,7 @@ def check_miss(cfg, dev, rng, events=300):
     plain_ms = host_ms(lambda: miss_step_plain(page, b, cfg.mine_rows)
                        .tolist(), 50, 3)
     return {"ms": ms, "plain_ms": plain_ms, "bytes": by,
-            "ops": record_ops(cfg, 1) + 12 + cfg.pf_ways,
+            "ops": touched().miss_ops(cfg),
             "device_ms": dev_ms, "launch_ms": launch_ms, "err": err,
             "events": events, "need_events": needs,
             "transport_ms_in_turns": turns}
@@ -1164,7 +1050,8 @@ def phase_serving_kernels(dev, cases, timing, errs, floor):
         if t:
             ms, plain, by, ops_, dms, lib, extra = t
             row.update(ms=ms, device_ms=dms, plain_ms=plain,
-                       library_ms=lib, bound_ms=bound(by, ops_)[0], **extra)
+                       library_ms=lib,
+                       bound_ms=touched().bound_ms(by, ops_)[0], **extra)
             timing[timed] = t
         cases.append(row)
 
@@ -1209,7 +1096,7 @@ def phase_serving_kernels(dev, cases, timing, errs, floor):
         if t:
             ms, plain, by, ops_, dms, _, extra = t
             row.update(ms=ms, device_ms=dms, plain_ms=plain,
-                       bound_ms=bound(by, ops_)[0],
+                       bound_ms=touched().bound_ms(by, ops_)[0],
                        floor_ratio=floor_ratio(dms, floor), **extra)
             timing[timed] = t
         cases.append(row)
@@ -1248,7 +1135,8 @@ def phase_kernels(dev):
         errs["mithril_record"] = max(errs["mithril_record"], err)
         cases.append({"kernel": "mithril_record", "L": lanes, "case": tag,
                       "ms": ms, "host_ms": hms, "device_ms": dms,
-                      "plain_ms": plain, "bound_ms": bound(by, ops)[0],
+                      "plain_ms": plain,
+                      "bound_ms": touched().bound_ms(by, ops)[0],
                       "floor_ratio": floor_ratio(dms, floor)})
         if timed:
             timing[timed] = (ms, plain, by, ops, dms, None, {"host_ms": hms})
@@ -1280,7 +1168,7 @@ def phase_kernels(dev):
         cases.append({"kernel": name, "L": 1 if serial else lanes,
                       "N": n, "S": s, "W": w, "case": tag, "ms": ms,
                       "host_ms": hms, "device_ms": dms, "plain_ms": plain,
-                      "bound_ms": bound(by, ops)[0],
+                      "bound_ms": touched().bound_ms(by, ops)[0],
                       "floor_ratio": floor_ratio(dms, floor),
                       "nonzero_codes": nz})
         if timed:
@@ -1330,7 +1218,7 @@ def phase_kernels(dev):
                "pairs_stored": t["pairs_stored"],
                "pairs_dropped": t["pairs_dropped"]}
         if timed:
-            bms = bound(t["bytes"], t["ops"])[0]
+            bms = touched().bound_ms(t["bytes"], t["ops"])[0]
             row.update(ms=t["ms"], host_ms=t["host_ms"],
                        device_ms=t["device_ms"], plain_ms=t["plain_ms"],
                        bound_ms=bms, pairs_kept=t["pairs_kept"],
@@ -1379,7 +1267,8 @@ def phase_kernels(dev):
                        "case": "serving tables (MCFG), one lane",
                        "ms": t["ms"], "device_ms": t["device_ms"],
                        "plain_ms": t["plain_ms"],
-                       "bound_ms": bound(t["bytes"], t["ops"])[0],
+                       "bound_ms": touched().bound_ms(t["bytes"],
+                                                      t["ops"])[0],
                        "floor_ratio": floor_ratio(t["device_ms"], floor)},
                       **extra))
     timing["mithril_miss_step"] = (t["ms"], t["plain_ms"], t["bytes"],
@@ -3716,6 +3605,388 @@ def phase_training(dev, child: subprocess.Popen) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: distribution
+# ---------------------------------------------------------------------------
+
+DIST_ARCH = "llama3.2-3b"
+# one MoE layer; the capacity factor of the reference's TP/EP test
+# (tests/test_dist.py), where no layout drops a token: EP's two-stage
+# capacities differ from the dense path's, so at the config's own factor
+# the layouts keep different tokens
+DIST_MOE = dict(arch="qwen2-moe-a2.7b", tokens=512, cap_factor=4.0)
+# rtol = atol, the reference's (tests/test_dist.py)
+DIST_MOE_TOL = {"logits": 1e-5, "out": 2e-2}
+DIST_TRAIN_TOL = 1e-3         # rtol = atol: the CPU tests' (bf16 partials)
+DIST_SWEEP = dict(label="mithril-lru", requests=2_000)
+DRYRUN_CELLS = ("train_4k", "decode_32k")
+
+
+def dryrun_child() -> None:
+    """Child process: the dry run of DRYRUN_CELLS for DIST_ARCH on the
+    256-rank production mesh (a fake process group, so on the CPU and in
+    a process of its own); prints the per-device counts as JSON."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.roofline import model_flops
+    out = {}
+    for name in DRYRUN_CELLS:
+        t0 = time.time()
+        r = run_cell(DIST_ARCH, name, False, "fsdp", save=False)
+        sh = SHAPES[name]
+        share = model_flops(get_config(DIST_ARCH), sh.kind, sh.global_batch,
+                            sh.seq_len) / r["n_devices"]
+        out[name] = {"mesh": r["mesh"], "n_devices": r["n_devices"],
+                     "flops_per_device": r["flops_hlo_once"],
+                     "model_flops_per_device": share,
+                     "flops_over_model_share": r["flops_hlo_once"] / share,
+                     "bytes_per_device": r["bytes_hlo_once"],
+                     "argument_bytes_per_device":
+                         r["memory"]["argument_size_in_bytes"],
+                     "collective_counts": r["collective_counts"],
+                     "collective_bytes": r["collective_bytes_once"],
+                     "run_seconds": r["lower_s"],
+                     "seconds": time.time() - t0}
+    print(json.dumps(out), flush=True)
+
+
+def start_dryrun_child() -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dryrun-child"],
+        stdout=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES=""))
+
+
+def _max_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _local(t):
+    """A DTensor's shard on this rank (at one rank: the whole tensor)."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def dist_serving(dev, mesh) -> dict:
+    """DIST_ARCH at full width and depth: ``main``'s 4 x 32-token prompts
+    and 16 teacher-forced decode steps through the plain ``prefill`` /
+    ``decode_step``, then through ``jit_cell``'s prefill and decode cells
+    on the same weights (now DTensors on the mesh) and tokens; the
+    largest logit difference of each call and ms a token of each path."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import jit_cell
+    from repro_torch.models import lm
+    cfg = get_config(DIST_ARCH)
+    b, p, d = (SERVE_ARGS[k] for k in ("requests", "prompt_len",
+                                        "decode_steps"))
+    model = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (b, p + d)),
+                             dtype=torch.int32, device=dev)
+    batch = {"tokens": tokens[:, :p]}
+
+    def pos(i):
+        return torch.full((b,), p + i, dtype=torch.int32, device=dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with torch.no_grad():
+        (want, cache), plain_prefill_ms = timed(
+            lambda: lm.prefill(cfg, model, batch, pad_to=p + d))
+        plain, plain_ms = [want], []
+        for i in range(d):
+            (logits, cache), ms = timed(lambda: lm.decode_step(
+                cfg, model, cache, tokens[:, p + i], pos(i)))
+            plain.append(logits)
+            plain_ms.append(ms)
+    del cache
+    step, _ = jit_cell(mesh, {"cfg": cfg, "kind": "prefill",
+                              "params": model, "batch": batch})
+    (got, cache_c), cell_prefill_ms = timed(lambda: step(model, batch))
+    errs = [logits_err(_local(got).cpu().numpy(), plain[0].cpu().numpy())]
+    # the decode cell's cache: the prefill cell's entries, with headroom
+    cache = lm.init_cache(cfg, b, p + d, device=dev)
+    for g, gc in zip(cache, cache_c):
+        for u in g:
+            for n in g[u]:
+                g[u][n][:, :, :p].copy_(_local(gc[u][n]))
+    del cache_c
+    step, _ = jit_cell(mesh, {"cfg": cfg, "kind": "decode", "params": model,
+                              "cache": cache, "token": tokens[:, p],
+                              "pos": pos(0)})
+    cell_ms = []
+    for i in range(d):
+        (logits, cache), ms = timed(
+            lambda: step(model, cache, tokens[:, p + i], pos(i)))
+        errs.append(logits_err(_local(logits).cpu().numpy(),
+                               plain[i + 1].cpu().numpy()))
+        cell_ms.append(ms)
+    placements = sorted({str(tuple(prm.placements))
+                         for prm in model.parameters()})
+    del model, cache
+    return {"arch": DIST_ARCH, "requests": b, "prompt_len": p,
+            "decode_steps": d, "strategy": "tp_serve (decode), fsdp "
+            "(prefill)", "parameter_placements": placements,
+            "prefill_max_abs_diff": errs[0]["max_abs_err"],
+            "decode_max_abs_diff": max(e["max_abs_err"] for e in errs[1:]),
+            "within_tol": all(e["within_tol"] for e in errs),
+            "finite": bool(all(torch.isfinite(t).all() for t in plain)),
+            "plain_prefill_ms": plain_prefill_ms,
+            "cell_prefill_ms": cell_prefill_ms,
+            "plain_ms_a_token_p50": statistics.median(plain_ms) / b,
+            "cell_ms_a_token_p50": statistics.median(cell_ms) / b,
+            "plain_step_ms": plain_ms, "cell_step_ms": cell_ms}
+
+
+def dist_training(dev, mesh) -> dict:
+    """The training twin (DIST_ARCH at full width, TRAIN_TWIN's depth
+    and batch): one step of ``make_train_fn`` and one of ``jit_cell``'s
+    train cell (fsdp) from equal states; losses, gradient norms and the
+    largest difference of the updated parameters."""
+    import copy
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import jit_cell, make_train_fn
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_config(DIST_ARCH),
+                              n_layers=TRAIN_TWIN["layers"])
+    plain = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                           device=dev).requires_grad_()
+    cell = copy.deepcopy(plain)
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab, (TRAIN_TWIN["batch"], TRAIN_TWIN["seq"] + 1)),
+        dtype=torch.int32, device=dev)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    opt_cfg = adamw.AdamWConfig()
+    out = {"layers": cfg.n_layers, "batch": list(batch["tokens"].shape),
+           "strategy": "fsdp"}
+    for name, model, make in (
+            ("plain", plain, lambda m, o: make_train_fn(cfg, opt_cfg)),
+            ("cell", cell, lambda m, o: jit_cell(
+                mesh, {"cfg": cfg, "kind": "train", "params": m,
+                       "opt_state": o, "batch": batch},
+                opt_cfg=opt_cfg)[0])):
+        opt = adamw.init(dict(model.named_parameters()))
+        step = make(model, opt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, metrics = step(model, opt, batch)
+        out[name] = {"loss": float(metrics["loss"]),
+                     "grad_norm": float(metrics["grad_norm"]),
+                     "step_ms": (time.perf_counter() - t0) * 1e3}
+        del opt
+    got = dict(cell.named_parameters())
+    out["param_max_abs_diff"] = max(
+        _max_diff(_local(got[n].detach()), prm.detach())
+        for n, prm in plain.named_parameters())
+    out["loss_abs_diff"] = abs(out["plain"]["loss"] - out["cell"]["loss"])
+    out["grad_norm_abs_diff"] = abs(out["plain"]["grad_norm"]
+                                    - out["cell"]["grad_norm"])
+    del plain, cell, got
+    return out
+
+
+def dist_moe(dev, mesh) -> dict:
+    """One MoE layer at DIST_MOE's published widths, DIST_MOE's tokens:
+    ``moe_ffn_tp`` and ``moe_ffn_ep`` on the mesh against dense
+    ``moe_ffn``, and each one's time."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.dist import moe_ffn_ep, moe_ffn_tp, sharding_ctx
+    from repro_torch.models import lm
+    from repro_torch.models.layers import dense_init
+    from repro_torch.models.moe import moe_ffn
+    cfg = get_config(DIST_MOE["arch"])
+    gen = torch.Generator(device=dev).manual_seed(2)
+    layer = lm.MoE(cfg, device=dev)
+    with torch.no_grad():
+        for name, prm in layer.named_parameters():
+            prm.copy_(dense_init(prm.shape, gen, lm._init_axis(name, prm.ndim),
+                                 dtype=prm.dtype, device=dev))
+    p = layer.params()
+    x = torch.randn((DIST_MOE["tokens"], cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k,
+              cap_factor=DIST_MOE["cap_factor"])
+    out = {"arch": DIST_MOE["arch"], "d_model": cfg.d_model,
+           "cap_factor": DIST_MOE["cap_factor"],
+           "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+           "expert_width": cfg.moe_d_ff,
+           "shared_experts": cfg.n_shared_experts,
+           "tokens": DIST_MOE["tokens"], "tolerance": DIST_MOE_TOL}
+    with torch.no_grad():
+        dense = moe_ffn(p, x, **kw)
+        out["dense_ms"] = cuda_ms(lambda: moe_ffn(p, x, **kw), reps=10)
+        for name, impl in (("tp", moe_ffn_tp), ("ep", moe_ffn_ep)):
+            with sharding_ctx(mesh):
+                got = impl(p, x, **kw)
+                ms = cuda_ms(lambda: impl(p, x, **kw), reps=10)
+            tol = {k: DIST_MOE_TOL[k] * (1 + t.float().abs())
+                   for k, t in (("logits", dense[1]), ("out", dense[0]))}
+            out[name] = {
+                "idx_equal": bool(torch.equal(got[2], dense[2])),
+                "logits_max_abs_diff": _max_diff(got[1], dense[1]),
+                "out_max_abs_diff": _max_diff(got[0], dense[0]),
+                "within_tol": bool(
+                    ((got[1] - dense[1]).abs() <= tol["logits"]).all()
+                    and ((got[0].float() - dense[0].float()).abs()
+                         <= tol["out"]).all()),
+                "ms": ms}
+    return out
+
+
+def dist_psum(dev) -> dict:
+    """``compressed_psum`` over the one-rank group against int8
+    quantize-dequantize of the same tensor."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.runtime import (compressed_psum, dequantize_int8,
+                                     quantize_int8)
+    x = torch.randn(1 << 20, generator=torch.Generator(device=dev)
+                    .manual_seed(3), device=dev)
+    got = compressed_psum(x, dist.group.WORLD)
+    want = dequantize_int8(*quantize_int8(x)).to(x.dtype)
+    return {"elements": x.numel(), "max_abs_diff": _max_diff(got, want)}
+
+
+def dist_sweep(dev) -> dict:
+    """DIST_SWEEP's label over a prefix of the quick corpus through
+    ``sweep_scheduled`` with ``shard=True`` (the lanes split over the
+    cards: one here), with ``devices=[dev, dev]`` (two contiguous lane
+    blocks, each through its own captured-graph runner and carry on the
+    one card: the split, the per-shard live masks and the concatenation
+    of hits and ``Stats``) and with ``shard=False``: equal ``Stats`` and
+    hits. The launches of the two-runner sweep are counted apart."""
+    import numpy as np
+    from repro_torch.cache import sweep_scheduled
+    from repro_torch.cache.sweep import _lane_shards
+    from repro_torch.kernels import ops
+    from repro_torch.traces import corpus_suite
+    _, blocks, lengths = corpus_suite("quick", DIST_SWEEP["requests"])
+    cfg = parity_grid(PARITY_CAPACITY)[DIST_SWEEP["label"]]
+    t0 = time.time()
+    sharded = sweep_scheduled(cfg, blocks, lengths, shard=True, device=dev)
+    before = ops.launch_counts()
+    two = sweep_scheduled(cfg, blocks, lengths, shard=True, device=dev,
+                          devices=[dev, dev])
+    two_launches = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    single = sweep_scheduled(cfg, blocks, lengths, shard=False, device=dev)
+
+    def equal(a, b) -> dict:
+        return {"stats_equal": all(np.array_equal(x, y) for x, y in zip(
+                    a.stats, b.stats)),
+                "hits_equal": bool(np.array_equal(a.hit_curve,
+                                                  b.hit_curve))}
+    return {"label": DIST_SWEEP["label"], "traces": len(lengths),
+            "requests": int(np.sum(lengths)),
+            "n_shards": len(_lane_shards(len(lengths), True, dev)),
+            **equal(sharded, single),
+            "two_runners": {"n_shards": len(_lane_shards(
+                len(lengths), True, devices=[dev, dev])),
+                **equal(two, single), "launches": two_launches},
+            "hit_ratio_mean": float(np.mean(sharded.hit_ratios())),
+            "seconds": time.time() - t0}
+
+
+def phase_distribution(dev, child: subprocess.Popen) -> dict:
+    """A one-rank NCCL group (no network: a ``HashStore``) and the smoke
+    mesh (1, 1) on it: DIST_ARCH's prefill and decode cells and the
+    training twin's train cell against the plain steps, TP and EP MoE
+    against dense, ``compressed_psum``, the lane-sharded sweeps (one
+    shard, then two runners on the card; their launches are this
+    phase's), then the dry run from the CPU child.
+    Returns the launch counts of the sweeps."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_smoke_mesh
+    t_phase = time.time()
+    info = {"phase": "distribution", "tolerance": {
+        "serving_cells": {"rtol": MODEL_TOL, "atol": MODEL_TOL},
+        "train_cell": {"rtol": DIST_TRAIN_TOL, "atol": DIST_TRAIN_TOL},
+        "moe": DIST_MOE_TOL}}
+    if dev.type == "cuda":
+        torch.cuda.set_device(torch.cuda.current_device())
+    # no network: the one rank meets itself through an in-memory store
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_smoke_mesh(dev)
+        info["mesh"] = {"shape": list(mesh.shape),
+                        "axes": list(mesh.mesh_dim_names),
+                        "backend": dist.get_backend()}
+        for key, fn in (("serving", dist_serving), ("training",
+                                                    dist_training)):
+            t0 = time.time()
+            info[key] = fn(dev, mesh)
+            info[key]["seconds"] = time.time() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+        info["moe"] = dist_moe(dev, mesh)
+        info["compressed_psum"] = dist_psum(dev)
+        ops.reset_launch_counts()
+        info["sweep"] = dist_sweep(dev)
+        counts = ops.launch_counts()
+        info["sweep"]["launches"] = counts
+    finally:
+        dist.destroy_process_group()
+    out, _ = child.communicate(timeout=600)
+    if child.returncode != 0:
+        emit(info)
+        fail("distribution: the dry-run process failed")
+    info["dryrun"] = json.loads(out.strip().splitlines()[-1])
+    info["seconds"] = time.time() - t_phase
+    emit(info)
+    bad = []
+    sv, tr = info["serving"], info["training"]
+    if not (sv["finite"] and sv["within_tol"]):
+        bad.append(f"serving cells differ from the plain steps: "
+                   f"{sv['prefill_max_abs_diff']}, "
+                   f"{sv['decode_max_abs_diff']}")
+    for key in ("loss", "grad_norm"):
+        want = tr["plain"][key]
+        if not abs(tr["cell"][key] - want) <= DIST_TRAIN_TOL * (
+                1 + abs(want)):
+            bad.append(f"train cell's {key} differs from make_train_fn's: "
+                       f"{tr}")
+    for name in ("tp", "ep"):
+        m = info["moe"][name]
+        if not (m["idx_equal"] and m["within_tol"]):
+            bad.append(f"moe {name}: {m}")
+    if info["compressed_psum"]["max_abs_diff"] != 0:
+        bad.append(f"compressed_psum: {info['compressed_psum']}")
+    sw = info["sweep"]
+    if not (sw["stats_equal"] and sw["hits_equal"]):
+        bad.append("the sharded sweep differs from shard=False")
+    two = sw["two_runners"]
+    if not (two["n_shards"] == 2 and two["stats_equal"]
+            and two["hits_equal"]):
+        bad.append(f"the two-runner sweep differs from shard=False: {two}")
+    if not (two["launches"]["mithril_record"]
+            and two["launches"]["mithril_mine_step"]):
+        bad.append(f"the two-runner sweep launched {two['launches']}")
+    if not (counts["mithril_record"] and counts["mithril_mine_step"]):
+        bad.append(f"the sweeps launched {counts}")
+    for name, cell in info["dryrun"].items():
+        if not cell["flops_per_device"] > 0:
+            bad.append(f"dry run {name}: no flops")
+    if bad:
+        fail(f"distribution: {bad}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--cross-check":
@@ -3737,6 +4008,10 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--training-cross-check":
         sys.path.insert(0, str(SRC))
         training_cross_check_child()
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--dryrun-child":
+        sys.path.insert(0, str(SRC))
+        dryrun_child()
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--parity":
         import torch
@@ -3804,7 +4079,11 @@ def run(children: dict, t_start: float) -> int:
     by_path["serving"] = phase_serving(dev, children["serving"])
     by_path["model"] = phase_model(dev, children["model"])
     children["training"] = start_training_cross_check()
+    # the dry run's fake process group cannot share a process with the
+    # NCCL one: it runs on the CPU in a child, meanwhile
+    children["dryrun"] = start_dryrun_child()
     by_path["training"] = phase_training(dev, children["training"])
+    by_path["distribution"] = phase_distribution(dev, children["dryrun"])
     counts = {k: sum(c[k] for c in by_path.values()) for k in KERNEL_INFO}
     merges = by_path["serving"]["paged_decode_merge"]    # only serving
     missing = [k for k, v in counts.items() if v == 0 and k not in OFF_PATH]
@@ -3833,7 +4112,7 @@ def run(children: dict, t_start: float) -> int:
     kernels = []
     for name, (src, replaces) in KERNEL_INFO.items():
         ms, plain_ms, by, ops_, dev_ms, lib_ms = (timing[name] + (None,))[:6]
-        bound_ms, bound_by = bound(by, ops_)
+        bound_ms, bound_by = touched().bound_ms(by, ops_)
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": counts[name],
                "launches_by_path": {p: c[name] for p, c in by_path.items()},
@@ -3853,7 +4132,8 @@ def run(children: dict, t_start: float) -> int:
                 t = timing[f"{name}@{tag}"]
                 row[f"at_{tag}"] = {"ms": t[0], "device_ms": t[4],
                                     "plain_ms": t[1],
-                                    "bound_ms": bound(t[2], t[3])[0],
+                                    "bound_ms":
+                                        touched().bound_ms(t[2], t[3])[0],
                                     "floor_ratio": floor_ratio(t[4], floor)}
                 if len(t) > 5:
                     row[f"at_{tag}"]["library_ms"] = t[5]

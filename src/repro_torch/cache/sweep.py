@@ -37,8 +37,16 @@ updates then write back old values: an exhausted lane can neither change
 state, contribute to statistics, nor trigger mining, so per-trace
 results are bit-identical to simulating each trace alone. Groups of
 steps in which no lane is valid are therefore skipped, on the card and
-on the CPU alike. Lane sharding over several devices is not ported:
-``shard`` is accepted and means the one device.
+on the CPU alike.
+
+Lane sharding (``shard=None``/``True``, the reference's): lanes never
+communicate, so a sweep whose lane width divides over the local cards
+(``torch.cuda.device_count()``, or an explicit ``devices`` sequence)
+splits its lanes into contiguous blocks, one chunk runner and carry per
+block on its device, with no collective; per-lane results are the
+single-device runner's bit for bit. ``shard=False`` forces one device.
+Two shards on one device (``devices=["cpu", "cpu"]``) keep two runners:
+a runner's carry and graphs are its own.
 """
 
 from __future__ import annotations
@@ -296,23 +304,59 @@ def _device(device: Device) -> torch.device:
 
 
 @functools.lru_cache(maxsize=None)
-def _runner(cfg: SimConfig, unroll: int, device: torch.device
-            ) -> ChunkRunner:
-    """One chunk runner per (config, steps a graph, device)."""
+def _runner(cfg: SimConfig, unroll: int, device: torch.device,
+            shard: int = 0) -> ChunkRunner:
+    """One chunk runner per (config, steps a graph, device, lane shard)."""
     return ChunkRunner(cfg, unroll, device)
+
+
+def _shard_devices(device: Device, n_shards: int) -> Tuple[torch.device, ...]:
+    """The devices of an ``n_shards``-way lane split of a sweep on
+    ``device``: the cards 0..n-1, or ``device`` n times on the CPU."""
+    dev = _device(device)
+    if dev.type == "cuda" and n_shards > 1:
+        return tuple(torch.device("cuda", i) for i in range(n_shards))
+    return (dev,) * n_shards
+
+
+def _lane_shards(n_lanes: int, shard: Optional[bool], device: Device = None,
+                 devices: Optional[Sequence[Device]] = None
+                 ) -> Tuple[torch.device, ...]:
+    """The devices to split the lane axis over, one per shard (one
+    device: the single-device path).
+
+    Auto policy (``shard=None``/``True``): every local card (or each of
+    ``devices``) when the lane count divides — the divisibility contract
+    of ``dist.sharding`` (a width that does not divide runs on one
+    device rather than erroring). ``shard=False`` forces the
+    single-device path (the bit-exactness reference)."""
+    if devices is not None:
+        devs = tuple(_device(d) for d in devices)
+        if not devs:
+            raise ValueError("devices must name at least one device")
+    else:
+        dev = _device(device)
+        n = torch.cuda.device_count() if dev.type == "cuda" else 1
+        devs = _shard_devices(dev, n)
+    if shard is False or len(devs) <= 1 or n_lanes % len(devs):
+        return devs[:1]
+    return devs
 
 
 def chunk_runner(cfg: SimConfig, unroll: int = DEFAULT_UNROLL,
                  device: Device = None) -> ChunkRunner:
-    """The cached runner that sweeps of ``cfg`` at ``unroll`` use."""
-    return _runner(cfg, unroll, _device(device))
+    """The cached runner that sweeps of ``cfg`` at ``unroll`` use (on one
+    device: the first lane shard's)."""
+    return _runner(cfg, unroll, _device(device), 0)
 
 
 def compile_count(cfg: SimConfig, unroll: int = DEFAULT_UNROLL,
-                  device: Device = None) -> int:
-    """Graphs captured by ``cfg``'s chunk runner: one per lane width, so
-    a repeat sweep at the same geometry captures none (0 on the CPU)."""
-    return chunk_runner(cfg, unroll, device).captures
+                  device: Device = None, n_shards: int = 1) -> int:
+    """Graphs captured by ``cfg``'s chunk runners of an ``n_shards``-way
+    lane split on ``device``: one per lane width and shard, so a repeat
+    sweep at the same geometry captures none (0 on the CPU)."""
+    return sum(_runner(cfg, unroll, d, i).captures
+               for i, d in enumerate(_shard_devices(device, n_shards)))
 
 
 def reset_runners() -> None:
@@ -361,7 +405,8 @@ def sweep(cfg: SimConfig, blocks: np.ndarray,
           lengths: Optional[np.ndarray] = None,
           chunk: int = DEFAULT_CHUNK, unroll: int = DEFAULT_UNROLL,
           shard: Optional[bool] = None,
-          device: Device = None) -> SweepResult:
+          device: Device = None,
+          devices: Optional[Sequence[Device]] = None) -> SweepResult:
     """Run a (B, T) padded trace batch through one configuration.
 
     The offline special case of :func:`sweep_streaming`: every trace is
@@ -371,7 +416,8 @@ def sweep(cfg: SimConfig, blocks: np.ndarray,
     requests past it are bit-exact no-ops excluded from all statistics.
     Results are bit-identical to running each trace through ``simulate``
     alone. ``unroll`` is the steps of one captured graph on the card;
-    ``compiles`` counts the graphs this call captured.
+    ``compiles`` counts the graphs this call captured. ``shard`` and
+    ``devices``: the lane split (:func:`sweep_streaming`).
     """
     t0 = time.time()
     blocks = np.ascontiguousarray(np.asarray(blocks, np.int32))
@@ -383,7 +429,8 @@ def sweep(cfg: SimConfig, blocks: np.ndarray,
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     res = sweep_streaming(cfg, blocks, lengths=lengths,
                           lane_width=n_traces, chunk=chunk, unroll=unroll,
-                          shard=shard, device=device).result
+                          shard=shard, device=device,
+                          devices=devices).result
     return SweepResult(stats=res.stats, hit_curve=res.hit_curve,
                        lengths=lengths, compiles=res.compiles,
                        seconds=time.time() - t0)
@@ -425,9 +472,10 @@ class SweepPlan(NamedTuple):
     group may take a *narrower lane width* AND a *finer time chunk*
     than the primary shape (the second-chunk freedom of DESIGN.md §9),
     so chunk granularity no longer floors the padded tail on short
-    corpora. The port runs one device, so ``n_shards`` is always 1;
-    chunks are halvings of the base chunk. ``lane_width``/``chunk`` are
-    the widest group's shape (the primary slab).
+    corpora. Widths are multiples of ``n_shards`` so the lane axis
+    splits evenly over the cards; chunks are halvings of the base
+    chunk. ``lane_width``/``chunk`` are the widest group's shape (the
+    primary slab).
     """
 
     groups: Tuple[LaneGroup, ...]
@@ -486,13 +534,14 @@ class SweepPlan(NamedTuple):
         }
 
 
-def _width_candidates(w_max: int) -> Tuple[int, ...]:
-    """Packer width ladder: ``w_max`` and its successive halvings,
-    deduplicated, ascending."""
+def _width_candidates(w_max: int, n_shards: int = 1) -> Tuple[int, ...]:
+    """Packer width ladder: ``w_max`` and its successive halvings, each
+    rounded up to a multiple of ``n_shards`` (the divisibility contract
+    applied to the lane axis), deduplicated, ascending."""
     cands = set()
     w = w_max
     while w >= 1:
-        cands.add(w)
+        cands.add(-(-w // n_shards) * n_shards)
         if w == 1:
             break
         w //= 2
@@ -559,6 +608,7 @@ def _pack(lengths: Sequence[int], shapes: Sequence[Tuple[int, int]],
 
 def plan_sweep(lengths, lane_width: Optional[int] = None,
                chunk: int = DEFAULT_CHUNK,
+               n_shards: Optional[int] = None,
                max_shapes: int = DEFAULT_MAX_SHAPES,
                overhead_lanes: float = DEFAULT_PACK_OVERHEAD) -> SweepPlan:
     """Pack traces into lane groups with a cost-model packer (§9).
@@ -568,7 +618,8 @@ def plan_sweep(lengths, lane_width: Optional[int] = None,
     rounded up to the *group's* chunk. The packer chooses per-group
     ``(width, chunk)`` slab shapes from the candidate ladders — widths
     are ``lane_width`` (default ``min(n, DEFAULT_LANE_WIDTH)``) and its
-    halvings; chunks are the base chunk and its halvings — to minimize total padded lane-steps plus
+    halvings rounded up to ``n_shards`` multiples; chunks are the base
+    chunk and its halvings — to minimize total padded lane-steps plus
     an ``overhead_lanes`` serial-dispatch term per group, subject to
     the compile budget: at most ``max_shapes`` DISTINCT ``(chunk,
     width)`` shapes, because every distinct slab shape is one more
@@ -580,9 +631,10 @@ def plan_sweep(lengths, lane_width: Optional[int] = None,
     cost-model pick loses on pure padded waste it falls back to the
     reference (``fixed_lane_steps`` records the reference either way).
 
-    The plan is for one device (``n_shards`` = 1). The effective base
-    chunk is capped at the longest trace (padded up), so each group's
-    loop reuses its shape's ``(chunk, width)`` slab.
+    ``n_shards=None`` reads the local card count (1 without a card);
+    pass 1 to plan a single-device schedule. The effective base chunk
+    is capped at the longest trace (padded up), so each group's loop
+    reuses its shape's ``(chunk, width)`` slab.
     """
     lengths = np.asarray(lengths, np.int64)
     n = len(lengths)
@@ -590,8 +642,11 @@ def plan_sweep(lengths, lane_width: Optional[int] = None,
         raise ValueError("plan_sweep needs at least one trace")
     if max_shapes < 1:
         raise ValueError("max_shapes must be >= 1")
+    if n_shards is None:
+        n_shards = max(1, torch.cuda.device_count())
     w_max = min(n, DEFAULT_LANE_WIDTH) if lane_width is None \
         else max(1, lane_width)
+    w_max = -(-w_max // n_shards) * n_shards
     eff_chunk = max(1, min(chunk, int(lengths.max())))
     order = np.argsort(-lengths, kind="stable")   # longest first
     sorted_lens = [int(lengths[i]) for i in order]
@@ -614,7 +669,7 @@ def plan_sweep(lengths, lane_width: Optional[int] = None,
     # width ladder x chunk ladder, ordered coarse-to-fine.
     from itertools import combinations
     cands = [(w, ck)
-             for w in reversed(_width_candidates(w_max))
+             for w in reversed(_width_candidates(w_max, n_shards))
              for ck in reversed(_chunk_candidates(eff_chunk))]
     best_cost, best_shapes = None, fixed_shapes
     for size in range(1, min(max_shapes, len(cands)) + 1):
@@ -637,7 +692,7 @@ def plan_sweep(lengths, lane_width: Optional[int] = None,
         i += w
     return SweepPlan(tuple(groups),
                      max(g.lane_width for g in groups),
-                     eff_chunk, 1,
+                     eff_chunk, n_shards,
                      int(lengths.sum()), int(fixed_steps))
 
 
@@ -671,7 +726,10 @@ def sweep_scheduled(cfg: SimConfig,
                     lane_width: Optional[int] = None,
                     chunk: int = DEFAULT_CHUNK,
                     plan: Optional[SweepPlan] = None,
-                    device: Device = None) -> SweepResult:
+                    shard: Optional[bool] = None,
+                    device: Device = None,
+                    devices: Optional[Sequence[Device]] = None
+                    ) -> SweepResult:
     """Sweep an arbitrary-size trace corpus through one configuration.
 
     Accepts a dict/sequence of unequal-length traces, a
@@ -683,7 +741,8 @@ def sweep_scheduled(cfg: SimConfig,
     ORIGINAL trace order. Statistics are bit-identical to sweeping (or
     serially simulating) each trace alone; groups holding fewer traces
     than their lane width are padded with empty (length-0) lanes.
-    ``compiles`` sums the groups' captures.
+    ``compiles`` sums the groups' captures. ``shard`` and ``devices``:
+    each group's lane split (:func:`sweep_streaming`).
     """
     t0 = time.time()
     dev = resolve_device(device)
@@ -713,7 +772,8 @@ def sweep_scheduled(cfg: SimConfig,
             ln = int(lengths[idx])
             gb[j, :ln] = blocks[idx, :ln]
             gl[j] = ln
-        res = sweep(cfg, gb, gl, chunk=g.chunk, device=dev)
+        res = sweep(cfg, gb, gl, chunk=g.chunk, shard=shard, device=dev,
+                    devices=devices)
         compiles += res.compiles
         if stats_out is None:
             stats_out = [np.zeros((n,) + leaf.shape[1:], leaf.dtype)
@@ -807,8 +867,9 @@ class _Slab(NamedTuple):
     that drain once this slab runs — the consumer copies those lanes'
     statistics on the device before the next slab changes the carry in
     place. ``live`` says which rows hold a valid lane (the others are
-    not run). ``buffers`` holds the host staging so the async drain can
-    recycle it into the producer's pool, and ``ready`` is the event of
+    not run; one mask per lane shard). ``buffers`` holds the host
+    staging so the async drain can recycle it into the producer's
+    pool, and ``ready`` is the event of
     its upload on the card (``None`` on the synchronous path, where
     staging is throwaway, and on the CPU).
     """
@@ -816,7 +877,7 @@ class _Slab(NamedTuple):
     blocks: torch.Tensor                    # (chunk, W) int32, staged
     valid: torch.Tensor                     # (chunk, W) bool, staged
     reset: Optional[torch.Tensor]           # (W,) bool; None = no admission
-    live: np.ndarray                        # (chunk,) bool
+    live: Tuple[np.ndarray, ...]            # per lane shard: (chunk,) bool
     placements: Tuple[Tuple[int, int, int, int, int,
                             Optional[np.ndarray]], ...]
     harvest: Tuple[Tuple[int, int], ...]
@@ -981,7 +1042,9 @@ def sweep_streaming(cfg: SimConfig,
                     shard: Optional[bool] = None,
                     ring_depth: int = DEFAULT_RING_DEPTH,
                     async_producer: bool = True,
-                    device: Device = None) -> StreamResult:
+                    device: Device = None,
+                    devices: Optional[Sequence[Device]] = None
+                    ) -> StreamResult:
     """Online ingestion: arrival is the primitive, traces stream through
     a recycled lane pool.
 
@@ -995,8 +1058,10 @@ def sweep_streaming(cfg: SimConfig,
     instead of the engine scanning padded tails. Slabs stage through a
     :class:`RingBuffer` ``ring_depth`` ahead of the device and run
     through the chunk runner (``unroll`` steps a captured graph on the
-    card). ``shard`` is accepted for the reference's signature and means
-    the one device.
+    card). ``shard`` (None/True: split the lanes over the cards, or over
+    ``devices``, when the width divides; False: one device) runs each
+    contiguous block of lanes through a runner of its own on its device;
+    slabs stage on the first device and each shard takes its columns.
 
     ``arrivals`` gives per-trace nondecreasing request arrival steps
     (``None`` = everything at step 0); when every trace arrives at 0 and
@@ -1062,18 +1127,31 @@ def sweep_streaming(cfg: SimConfig,
                                  "and nonnegative")
             avails[i] = a
 
-    dev = _device(device)
     w = min(n, DEFAULT_LANE_WIDTH) if lane_width is None \
         else max(1, int(lane_width))
+    shard_devs = _lane_shards(w, shard, device, devices)
+    dev = shard_devs[0]
+    per = w // len(shard_devs)
+    spans = [slice(i * per, (i + 1) * per) for i in range(len(shard_devs))]
     chunk = max(1, min(int(chunk), max(1, t_max)))
     tenants = [_Tenant(i, blocks[i], avails[i], int(lengths[i]))
                for i in range(n)]
 
-    runner = _runner(cfg, unroll, dev)
-    before = runner.captures
-    template = runner.init_batched(w)
-    carry = runner.carry(w)         # on the card: captured at first use
-    _assign(carry, template)
+    runners = [_runner(cfg, unroll, d, i) for i, d in enumerate(shard_devs)]
+    before = sum(r.captures for r in runners)
+    templates = [r.init_batched(per) for r in runners]
+    # on the card: captured at first use
+    carries = [r.carry(per) for r in runners]
+    for c, t in zip(carries, templates):
+        _assign(c, t)
+
+    def lane_stats(parts) -> List[torch.Tensor]:
+        """Every lane's stats leaves (copies), the shards' joined on the
+        first device."""
+        if len(parts) == 1:
+            return [leaf.clone() for leaf in parts[0]["stats"]]
+        return [torch.cat([p["stats"][j].to(dev) for p in parts])
+                for j in range(len(parts[0]["stats"]))]
 
     queue: collections.deque = collections.deque(range(n))
     lanes: List[Optional[int]] = [None] * w
@@ -1204,7 +1282,8 @@ def sweep_streaming(cfg: SimConfig,
         buf.reset[:] = reset
         dev_blocks, dev_valid, dev_reset, ready = stage(buf, admit)
         timers["produce_s"] += time.perf_counter() - tp
-        return _Slab(dev_blocks, dev_valid, dev_reset, slab_valid.any(1),
+        live = tuple(slab_valid[:, sp].any(1) for sp in spans)
+        return _Slab(dev_blocks, dev_valid, dev_reset, live,
                      tuple(placements), tuple(harvest),
                      buf if async_producer else None, ready)
 
@@ -1233,13 +1312,19 @@ def sweep_streaming(cfg: SimConfig,
                     t.record_stream(current)
         # slab 0 skips the reset outright: the carry IS the template
         if slab.reset is not None and not first_slab:
-            _masked_reset(carry, template, slab.reset)
+            for c, t, sp, d in zip(carries, templates, spans, shard_devs):
+                _masked_reset(c, t, slab.reset[sp].to(d))
         first_slab = False
-        hits = runner.run(carry, slab.blocks, slab.valid, slab.live)
+        hits = [r.run(c, slab.blocks[:, sp].to(d), slab.valid[:, sp].to(d),
+                      live)
+                for r, c, sp, d, live in zip(runners, carries, spans,
+                                             shard_devs, slab.live)]
+        hits = hits[0] if len(hits) == 1 else torch.cat(
+            [h.to(dev) for h in hits], 1)
         if slab.harvest:
             # the carry changes in place: copy the stats of the lanes
             # that drained before the next slab runs
-            snaps.append([leaf.clone() for leaf in carry["stats"]])
+            snaps.append(lane_stats(carries))
             for ti, lane in slab.harvest:
                 stash[ti] = (len(snaps) - 1, lane)
         n_slabs += 1
@@ -1359,7 +1444,7 @@ def sweep_streaming(cfg: SimConfig,
     for ti in range(n):
         k, lane = stash[ti]
         if k not in mat:
-            src = template["stats"] if k < 0 else snaps[k]
+            src = lane_stats(templates) if k < 0 else snaps[k]
             mat[k] = [leaf.cpu().numpy() for leaf in src]
         rows.append([leaf[lane] for leaf in mat[k]])
     stats = Stats(*(np.stack([r[j] for r in rows])
@@ -1376,7 +1461,7 @@ def sweep_streaming(cfg: SimConfig,
         "overlap": round(max(0.0, 1.0 - wall_s / busy), 4) if busy else 0.0,
     }
     result = SweepResult(stats=stats, hit_curve=hit_curve, lengths=lengths,
-                         compiles=runner.captures - before,
+                         compiles=sum(r.captures for r in runners) - before,
                          seconds=time.time() - t0)
     return StreamResult(result=result, lane_width=w, chunk=chunk,
                         n_slabs=n_slabs, async_producer=async_producer,

@@ -1,7 +1,7 @@
-"""Checkpoints of training state (``ckpt.CheckpointManager``). Restoring
-onto another mesh (the reference's ``elastic``) belongs with
-distribution."""
+"""Checkpoints of training state (``ckpt.CheckpointManager``) and
+restoring them onto another mesh (``elastic``)."""
 
+from . import elastic
 from .ckpt import CheckpointManager
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "elastic"]

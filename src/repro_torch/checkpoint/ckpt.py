@@ -130,14 +130,23 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def restore(self, tree_like: Any, step: Optional[int] = None
-                ) -> Tuple[int, Any]:
+    def restore(self, tree_like: Any, step: Optional[int] = None,
+                shardings=None) -> Tuple[int, Any]:
         """(step, a new state shaped, typed and placed as ``tree_like``)
-        from ``step`` (default: the latest complete one)."""
+        from ``step`` (default: the latest complete one). ``shardings``
+        (elastic resume): a ``(mesh, placements)`` pair, the placements
+        a tree matching the state's (``dist.sharding.to_named``, e.g.
+        ``checkpoint.elastic.reshard_state``); each restored leaf is
+        then a DTensor so placed on that mesh."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
         path = os.path.join(self.dir, f"step_{step}")
         with np.load(os.path.join(path, "arrays.npz")) as z:
             flat = {k: z[k] for k in z.files}
-        return step, _unflatten(tree_like, flat)
+        state = _unflatten(tree_like, flat)
+        if shardings is not None:   # elastic: place onto the (new) mesh
+            from ..dist.sharding import place_tree
+            mesh, named = shardings
+            state = place_tree(state, named, mesh)
+        return step, state

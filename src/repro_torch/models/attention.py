@@ -24,6 +24,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
 NEG_INF = -1e30
 
@@ -197,6 +198,15 @@ def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _flash_fwd(q, k, v, causal, window, q_offset, block_q, block_k)
 
 
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, window, q_offset, block_q, block_k):
+    """Shapes of the operator's outputs (``meta`` tensors, the dry run)."""
+    b, sq, hq, hd = q.shape
+    hkv = k.shape[2]
+    return (q.new_empty((b, sq, hq, hd)),
+            q.new_empty((b, hkv, hq // hkv, sq), dtype=torch.float32))
+
+
 class FlashAttention(torch.autograd.Function):
     """The flash forward, keeping ``(q, k, v, out, lse)``, and the
     blockwise backward (the reference's ``_flash`` custom VJP)."""
@@ -241,8 +251,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Blockwise flash with causal and sliding-window tile skipping in the
     forward and, when autograd records (:class:`FlashAttention`), in the
-    backward. ``q_offset``: absolute position of q[0].
+    backward. ``q_offset``: absolute position of q[0]. Overridable by
+    ``__torch_function__`` (a mesh runs it shard by shard).
     """
+    if has_torch_function((q, k, v)):
+        return handle_torch_function(
+            flash_attention, (q, k, v), q, k, v, causal=causal,
+            window=window, q_offset=q_offset, block_q=block_q,
+            block_k=block_k)
     block_q, block_k = block_plan(q.shape[1], k.shape[1], block_q, block_k)
     plan = (causal, window, q_offset, block_q, block_k)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

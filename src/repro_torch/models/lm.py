@@ -6,13 +6,14 @@ functions under the reference's names:
     init_params(cfg, generator, device=None)      -> model
     forward(cfg, model, batch)                    -> logits (B, S, V) fp32
     forward_train(cfg, model, batch, flags)       -> (total, metrics)
-    prefill(cfg, model, batch, pad_to=0)          -> (last_logits, cache)
-    decode_step(cfg, model, cache, token, pos)    -> (logits, cache)
+    prefill(cfg, model, batch, flags, pad_to=0)   -> (last_logits, cache)
+    decode_step(cfg, model, cache, token, pos, flags) -> (logits, cache)
 
 Block kinds: "attn" (full or sliding-window GQA) and "local" (sliding
 window), each with a dense SwiGLU FFN or, when ``cfg.n_experts > 0``,
-the MoE FFN (``models.moe.moe_ffn``; there is no mesh, so no other MoE
-path); "rglru" (``models.rglru``, RecurrentGemma) with the dense FFN;
+the MoE FFN (``models.moe.moe_ffn``; under a sharding context whose
+data axes divide the tokens, ``dist.moe_ep.moe_ffn_tp``); "rglru"
+(``models.rglru``, RecurrentGemma) with the dense FFN;
 "rwkv" (``models.rwkv6``: time mix, then channel mix). The
 encoder-decoder (whisper) uses layer norms with a bias, a GELU FFN
 with biases and no rotary embedding; its encoder runs non-causal "attn"
@@ -40,6 +41,16 @@ mode each unit ends in :func:`grad_cast_bf16`, and ``RunFlags.remat``
 recomputes a unit in the backward (``"full"``) or everything in it but
 the flash attention's output (``"attn_out"``); neither changes a bit of
 the loss or the gradients.
+
+Distribution: the reference's logical-axis annotations (``dist.ctx.
+constrain``) stand at the same points: q, k and v, the embedded input,
+each unit's output (the residual stream) and the logits. Outside a
+sharding context they are the identity. Inside one the parameters and
+inputs are DTensors (``launch.steps.jit_cell``) and ``constrain``
+redistributes. This module stays plain PyTorch: how its products,
+lookups and attention run on a mesh is ``dist.local.ShardwiseOps``'s
+choice, a ``__torch_function__`` mode that ``jit_cell`` installs (hence
+the override hooks in :func:`decode_attend` and :func:`f32_product`).
 """
 
 from __future__ import annotations
@@ -50,9 +61,11 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.overrides import handle_torch_function, has_torch_function
 from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
+from ..dist.ctx import constrain, current, remat_contexts
 from . import rglru as rg
 from . import rwkv6 as rk
 from .attention import decode_attention, flash_attention
@@ -304,6 +317,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # blocks
 # ---------------------------------------------------------------------------
 
+def decode_attend(q, k, v, kc, vc, positions):
+    """Write the step's key and value into the ring slot ``pos % S_c``
+    of this layer's caches, in place, and attend over them. Overridable
+    by ``__torch_function__`` (a mesh runs it shard by shard)."""
+    if has_torch_function((q, k, v, kc, vc)):
+        return handle_torch_function(decode_attend, (q, k, v, kc, vc), q, k,
+                                     v, kc, vc, positions)
+    b, s_c = q.shape[0], kc.shape[1]
+    slot = (positions[:, 0] % s_c).long()           # ring slot per row
+    rows = torch.arange(b, device=q.device)
+    kc[rows, slot] = k[:, 0]
+    vc[rows, slot] = v[:, 0]
+    lengths = torch.clamp(positions[:, 0] + 1, max=s_c)
+    return decode_attention(q, kc, vc, lengths)
+
+
 def _attn_sub(cfg, blk: Block, x, positions, mode, cache, causal=True):
     """Self-attention sublayer. ``cache``: this layer's (k, v) views in
     decode mode. Returns (out, new_cache_entry or None)."""
@@ -312,16 +341,15 @@ def _attn_sub(cfg, blk: Block, x, positions, mode, cache, causal=True):
     if use_rope(cfg):
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    if mode != "decode":
+        # the flash loop wants whole-sequence K/V per shard; q stays
+        # sequence-sharded
+        k = constrain(k, ("dp", None, None, None))
+        v = constrain(v, ("dp", None, None, None))
+        q = constrain(q, ("dp", "tp", None, None))
     new_cache = None
     if mode == "decode":
-        kc, vc = cache
-        s_c = kc.shape[1]
-        slot = (positions[:, 0] % s_c).long()       # ring slot per row
-        rows = torch.arange(b, device=x.device)
-        kc[rows, slot] = k[:, 0]
-        vc[rows, slot] = v[:, 0]
-        lengths = torch.clamp(positions[:, 0] + 1, max=s_c)
-        out = decode_attention(q, kc, vc, lengths)
+        out = decode_attend(q, k, v, *cache, positions)
     else:
         out = flash_attention(q, k, v, causal=causal, window=blk.window)
         if mode == "prefill":
@@ -340,15 +368,28 @@ def _cross_sub(cfg, p: Attention, x, cross_kv):
     return out.reshape(b, s, -1) @ p.wo
 
 
+def _moe_impl_auto(t: int):
+    """The active sharding context when it can run the TP-MoE (its data
+    axes divide the token count), else None."""
+    ctx = current()
+    if ctx is None or t % ctx.logical_sizes()["dp"]:
+        return None
+    return ctx
+
+
 def _ffn_sub(cfg, blk: Block, x, mode):
     """Dense, GELU or MoE FFN. Returns (out, aux_loss: the MoE's
     load-balancing loss in "train" mode, else None)."""
     mlp = blk.mlp
     if isinstance(mlp, MoE):
         b, s, d = x.shape
-        out, logits, idx = moe_ffn(mlp.params(), x.reshape(b * s, d),
-                                   n_experts=cfg.n_experts, top_k=cfg.top_k,
-                                   cap_factor=cfg.moe_cap_factor)
+        flat = constrain(x.reshape(b * s, d), ("dp", None))
+        impl = moe_ffn
+        if _moe_impl_auto(b * s) is not None:
+            from ..dist.moe_ep import moe_ffn_tp as impl
+        out, logits, idx = impl(mlp.params(), flat,
+                                n_experts=cfg.n_experts, top_k=cfg.top_k,
+                                cap_factor=cfg.moe_cap_factor)
         aux = (aux_load_balance_loss(logits, idx, cfg.n_experts)
                if mode == "train" else None)
         return out.reshape(b, s, d), aux
@@ -482,16 +523,18 @@ def _keep_attn_out(ctx, op, *args, **kwargs):
 def _maybe_remat(fn, flags: "RunFlags"):
     """``fn`` under the remat policy of ``flags`` (the reference's
     ``jax.checkpoint`` with ``nothing_saveable`` or
-    ``save_only_these_names("attn_out")``)."""
+    ``save_only_these_names("attn_out")``); a recompute runs under the
+    forward's sharding context (``dist.ctx.remat_contexts``)."""
     if flags.remat == "none":
         return fn
     if flags.remat == "full":
-        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 context_fn=remat_contexts)
     if flags.remat == "attn_out":
         return functools.partial(
             ckpt.checkpoint, fn, use_reentrant=False,
-            context_fn=functools.partial(
-                ckpt.create_selective_checkpoint_contexts, _keep_attn_out))
+            context_fn=functools.partial(remat_contexts, functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _keep_attn_out)))
     raise ValueError(f"unknown remat policy {flags.remat!r}")
 
 
@@ -532,7 +575,7 @@ def _run_layers(cfg, layers, x, positions, mode, cache=None,
                     xu, aux, _ = apply_layer(cfg, layers[i], xu, positions,
                                              mode, None, xkv, causal)
                     auxes.append(aux)
-                return xu, auxes
+                return _constrain_stream(xu, mode), auxes
 
             if recording:
                 x, auxes = _maybe_remat(body, flags)(x)
@@ -554,7 +597,15 @@ def _run_layers(cfg, layers, x, positions, mode, cache=None,
                     dst.copy_(src)
             else:
                 entries.setdefault((gi, j), []).append(new_c)
+        x = _constrain_stream(x, mode)
     return x, aux_total, entries
+
+
+def _constrain_stream(x, mode):
+    """The residual stream after a unit: batch over the data axes and,
+    outside decode, the sequence over the model axis (the per-unit save
+    otherwise dominates memory); dropped where it does not divide."""
+    return constrain(x, ("dp", "tp" if mode != "decode" else None, None))
 
 
 def _encode(cfg, model: CausalLM, frames, flags=None):
@@ -598,7 +649,7 @@ def _input_embeds(cfg, model: CausalLM, batch, positions):
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     if cfg.is_encoder_decoder:
         x = x + sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
-    return x
+    return constrain(x, ("dp", "tp" if x.shape[1] > 1 else None, None))
 
 
 class _F32Product(torch.autograd.Function):
@@ -629,7 +680,11 @@ def f32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for bf16 operands with a float32 result (the reference's
     ``preferred_element_type=float32``): on the card one bf16 product
     that writes float32; on the CPU, which has no such product, the
-    operands widened to float32 (their products are exact there)."""
+    operands widened to float32 (their products are exact there).
+    Overridable by ``__torch_function__`` (a mesh runs it shard by
+    shard)."""
+    if has_torch_function((x, w)):
+        return handle_torch_function(f32_product, (x, w), x, w)
     if x.is_cuda:
         return _F32Product.apply(x, w)
     return x.float() @ w.float()
@@ -640,7 +695,7 @@ def logits_fn(cfg, model: CausalLM, x):
     if cfg.padded_vocab != cfg.vocab:            # mask the vocab padding
         cols = torch.arange(cfg.padded_vocab, device=x.device)
         logits = logits + torch.where(cols < cfg.vocab, 0.0, -1e9)
-    return logits
+    return constrain(logits, ("dp", None, "tp"))
 
 
 def lm_loss(cfg, logits, labels):
@@ -687,20 +742,23 @@ def forward_train(cfg: ModelConfig, model: CausalLM, batch,
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
-def prefill(cfg: ModelConfig, model: CausalLM, batch, pad_to: int = 0):
-    """Fill the cache; returns (last_token_logits, cache).
+def prefill(cfg: ModelConfig, model: CausalLM, batch,
+            flags: RunFlags = RunFlags(), pad_to: int = 0):
+    """Fill the cache; returns (last_token_logits, cache). ``flags`` is
+    the reference's (a forward-only pass records no autograd, so it
+    changes no value).
 
     ``pad_to``: decode headroom. Full-attention caches are extended to
     this many slots so that decode at positions past the prompt does not
     wrap the ring; sliding-window caches keep their window size, and
     recurrent states have none. The encoder-decoder encodes
     ``batch["frames"]`` and appends the cross keys and values."""
-    cross_kv = _cross_of(cfg, model, batch)
+    cross_kv = _cross_of(cfg, model, batch, flags)
     positions = _positions_for(cfg, batch)
     s_in = positions.shape[1]
     x = _input_embeds(cfg, model, batch, positions)
     x, _, entries = _run_layers(cfg, model.layers, x, positions,
-                                "prefill", cross_kv=cross_kv)
+                                "prefill", cross_kv=cross_kv, flags=flags)
     cache = []
     for gi, (unit, _) in enumerate(layer_groups(cfg)):
         group = {}
@@ -723,9 +781,11 @@ def prefill(cfg: ModelConfig, model: CausalLM, batch, pad_to: int = 0):
     return logits_fn(cfg, model, x)[:, 0], cache
 
 
-def decode_step(cfg: ModelConfig, model: CausalLM, cache, token, pos):
+def decode_step(cfg: ModelConfig, model: CausalLM, cache, token, pos,
+                flags: RunFlags = RunFlags(remat="none")):
     """One decode step. token: (B,) int; pos: (B,) int (absolute).
-    Writes the cache in place; returns (logits (B, V) fp32, cache)."""
+    Writes the cache in place; returns (logits (B, V) fp32, cache).
+    ``flags`` is the reference's and changes no value."""
     positions = pos[:, None]
     x = _input_embeds(cfg, model, {"tokens": token[:, None]}, positions)
     cross_kv = None
@@ -733,7 +793,7 @@ def decode_step(cfg: ModelConfig, model: CausalLM, cache, token, pos):
         cross = cache[-1]["cross"]
         cross_kv = (cross["k"], cross["v"])
     x, _, _ = _run_layers(cfg, model.layers, x, positions, "decode", cache,
-                          cross_kv)
+                          cross_kv, flags)
     x = _norm(cfg, model.final_norm, x)
     return logits_fn(cfg, model, x)[:, 0], cache
 

@@ -21,6 +21,8 @@ Two choices keep routing the same on the CPU and the card:
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .layers import sigmoid, silu, swiglu
@@ -60,7 +62,10 @@ def group_tokens(idx: torch.Tensor, n_experts: int, cap: int):
     flat_e = idx.reshape(-1).long()
     order = torch.sort(flat_e, stable=True).indices      # (T*K,)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    # bincount's values, with a shape known before the data (meta)
+    counts = torch.zeros(n_experts, dtype=flat_e.dtype,
+                         device=idx.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(t * k, device=idx.device) - starts[sorted_e]
     keep = pos_in_e < cap
@@ -68,14 +73,54 @@ def group_tokens(idx: torch.Tensor, n_experts: int, cap: int):
     return slot, keep, order // k, order
 
 
+def expert_ffn(xe: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+               w2: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU FFNs as batched products: xe (E, C, d)."""
+    return torch.bmm(silu(torch.bmm(xe, w1)) * torch.bmm(xe, w3), w2)
+
+
+def combine(contrib: torch.Tensor, order: torch.Tensor,
+            idx: torch.Tensor) -> torch.Tensor:
+    """Each token's ``top_k`` weighted rows (``contrib``, in the sorted
+    order ``order`` of the flattened (T, K) choices ``idx``) added one
+    at a time in the rows' dtype, by ascending expert, as the
+    reference's scatter-add meets them in the dense path (and in this
+    order in every layout, so a sharded combine adds alike)."""
+    t, top_k = idx.shape
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(t * top_k, device=order.device)
+    by_expert = torch.sort(idx.long(), dim=-1, stable=True).indices
+    rows = torch.gather(rank.reshape(t, top_k), 1, by_expert)
+    out = torch.zeros((t, contrib.shape[1]), dtype=contrib.dtype,
+                      device=contrib.device)
+    for j in range(top_k):
+        out = out + contrib[rows[:, j]]
+    return out
+
+
+def shared_expert(p, x: torch.Tensor) -> torch.Tensor:
+    """qwen2-moe's shared experts with a sigmoid gate (zeros when the
+    model has none)."""
+    if "shared_w1" not in p:
+        return torch.zeros_like(x)
+    shared = swiglu(x, p["shared_w1"], p["shared_w3"], p["shared_w2"])
+    sg = sigmoid((x @ p["shared_gate"]).float())
+    return shared * sg[:, None].to(x.dtype)
+
+
 def moe_ffn(p, x: torch.Tensor, *, n_experts: int, top_k: int,
-            cap_factor: float = 1.25):
+            cap_factor: float = 1.25,
+            router_bias_mask: Optional[torch.Tensor] = None):
     """x: (T, d) flattened tokens. p: router/w1/w2/w3 (+shared).
+    ``router_bias_mask`` (E,) is added to the router's logits (it masks
+    expert-parallel padding experts).
 
     Returns (out (T, d), router_logits (T, E) fp32, idx (T, K)).
     """
     t, d = x.shape
     logits = router_logits(x, p["router"])
+    if router_bias_mask is not None:
+        logits = logits + router_bias_mask
     gates, idx = router_topk(logits, top_k)
 
     cap = capacity(t, top_k, n_experts, cap_factor)
@@ -88,29 +133,17 @@ def moe_ffn(p, x: torch.Tensor, *, n_experts: int, top_k: int,
     buf[tgt] = x[token_id]
     xe = buf[:-1].reshape(n_experts, cap, d)
 
-    # expert FFNs: batched swiglu over E
-    g = torch.bmm(xe, p["w1"])
-    u = torch.bmm(xe, p["w3"])
-    ye = torch.bmm(silu(g) * u, p["w2"])
+    ye = expert_ffn(xe, p["w1"], p["w3"], p["w2"])
 
     # combine: gather back, weight by the gate
     flat_gate = gates.reshape(-1)[order]
     y_tok = ye.reshape(-1, d)[torch.where(keep, slot, 0)]
     contrib = (torch.where(keep[:, None], y_tok, 0)
                * flat_gate[:, None].to(x.dtype))     # sorted order
-    # each token's rows in sorted order (ascending expert), added one at
-    # a time in bf16 as the reference's scatter-add meets them
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(t * top_k, device=x.device)
-    rows = torch.sort(rank.reshape(t, top_k), dim=-1).values
-    out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
-    for j in range(top_k):
-        out = out + contrib[rows[:, j]]
-
-    if "shared_w1" in p:  # qwen2-moe shared experts with a sigmoid gate
-        shared = swiglu(x, p["shared_w1"], p["shared_w3"], p["shared_w2"])
-        sg = sigmoid((x @ p["shared_gate"]).float())
-        out = out + shared * sg[:, None].to(x.dtype)
+    # each token's rows in sorted order (ascending expert)
+    out = combine(contrib, order, idx)
+    if "shared_w1" in p:
+        out = out + shared_expert(p, x)
     return out, logits, idx
 
 

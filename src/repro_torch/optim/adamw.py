@@ -32,6 +32,7 @@ from typing import (Dict, Iterable, Mapping, NamedTuple, Optional, Tuple,
                     Union)
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,9 +98,14 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 def global_norm(tensors: Union[Mapping[str, torch.Tensor],
                                Iterable[torch.Tensor]]) -> torch.Tensor:
     """``sqrt`` of the sum of squares of every element, in float32; a
-    dict is summed in sorted key order (the reference's leaf order)."""
+    dict is summed in sorted key order (the reference's leaf order).
+    Overridable by ``__torch_function__`` (a mesh sums each rank's
+    shards and all-reduces the sums)."""
     if isinstance(tensors, Mapping):
         tensors = [tensors[k] for k in sorted(tensors)]
+    tensors = tuple(tensors)
+    if has_torch_function(tensors):
+        return handle_torch_function(global_norm, tensors, tensors)
     total = None
     for x in tensors:
         s = tree_sum(torch.square(x.to(torch.float32)).reshape(-1))

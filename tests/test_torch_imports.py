@@ -60,7 +60,15 @@ ALONE_MODULES = ["repro_torch.cache.tiered", "repro_torch.launch.serve",
                  "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
                  "repro_torch.runtime", "repro_torch.runtime.fault",
                  "repro_torch.runtime.compress", "repro_torch.launch.train",
-                 "repro_torch.launch.steps"]
+                 "repro_torch.launch.steps",
+                 # distribution and the cost model
+                 "repro_torch.dist", "repro_torch.dist.sharding",
+                 "repro_torch.dist.ctx", "repro_torch.dist.moe_ep",
+                 "repro_torch.dist.local", "repro_torch.roofline",
+                 "repro_torch.roofline.analysis",
+                 "repro_torch.roofline.touched", "repro_torch.launch.mesh",
+                 "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                 "repro_torch.checkpoint.elastic"]
 
 
 @pytest.mark.parametrize("name", ALONE_MODULES)

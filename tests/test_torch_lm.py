@@ -156,6 +156,41 @@ def test_prefill_and_decode_match_reference(arch):
                     err_msg=f"{unit}.{name}")
 
 
+def test_flags_in_the_reference_position():
+    """``prefill(cfg, params, batch, flags, pad_to)``,
+    ``decode_step(cfg, params, cache, token, pos, flags)`` and
+    ``make_prefill_fn(cfg, flags)`` called positionally in the
+    reference's form give the reference's logits in both packages."""
+    from repro.launch.steps import make_prefill_fn as ref_make_prefill
+    from repro.models import RunFlags as RefFlags
+    from repro_torch.launch.steps import make_prefill_fn
+    cfg, ref_cfg, params, model = setup("llama3.2-3b")
+    tokens, ref_batch, port_batch = batches(cfg)
+    pad_to = S + STEPS
+    ref_flags, flags = RefFlags(remat="none"), lm.RunFlags(remat="none")
+    want, cache_ref = compiled(
+        lambda p, b: ref_prefill(ref_cfg, p, b, ref_flags, pad_to),
+        params, ref_batch)(params, ref_batch)
+    got, cache = lm.prefill(cfg, model, port_batch, flags, pad_to)
+    assert cache[0]["u0"]["k"].shape[2] == pad_to == cache_ref[0]["u0"][
+        "k"].shape[2]
+    np.testing.assert_allclose(as_np(got), as_np(want), rtol=TOL, atol=TOL)
+    got_fn, _ = make_prefill_fn(cfg, flags)(model, port_batch)
+    want_fn, _ = compiled(ref_make_prefill(ref_cfg, ref_flags), params,
+                          ref_batch)(params, ref_batch)
+    np.testing.assert_array_equal(as_np(got_fn), as_np(
+        lm.prefill(cfg, model, port_batch)[0]))
+    np.testing.assert_allclose(as_np(got_fn), as_np(want_fn), rtol=TOL,
+                               atol=TOL)
+    pos = np.full((B,), S, np.int32)
+    args = (params, cache_ref, jnp.asarray(tokens[:, S]), jnp.asarray(pos))
+    want, _ = compiled(lambda p, c, t, q: ref_decode(ref_cfg, p, c, t, q,
+                                                     ref_flags), *args)(*args)
+    got, _ = lm.decode_step(cfg, model, cache, torch.from_numpy(tokens[:, S]),
+                            torch.from_numpy(pos), flags)
+    np.testing.assert_allclose(as_np(got), as_np(want), rtol=TOL, atol=TOL)
+
+
 @pytest.mark.parametrize("arch", PORTED)
 def test_decode_matches_forward(arch):
     """prefill(x[:t]) + decode(x[t]) logits == forward(x[:t+1])[-1] in
