@@ -66,6 +66,7 @@ import torch
 from ..core import mithril
 from ..kernels import ops
 from ..kernels.backend import resolve_device
+from ..runtime import spans
 from .simulator import Device, SimConfig, SimResult, Stats, build_segments
 
 DEFAULT_CHUNK = 4096
@@ -231,12 +232,13 @@ class ChunkRunner:
                 self.carries[lanes] = self.init_batched(lanes)
             return self.carries[lanes]
         if lanes not in self.graphs:
-            self.graphs[lanes] = self._capture(lanes)
+            with spans.span("runner.capture") as cap:
+                self.graphs[lanes] = self._capture(lanes)
+            self.capture_seconds += cap.seconds
         return self.graphs[lanes].carry
 
     def _capture(self, lanes: int) -> _Graph:
         dev, g = self.device, self.unroll
-        t0 = time.perf_counter()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -258,7 +260,6 @@ class ChunkRunner:
             counted = ops.launch_counts()
             ops.set_launch_counts(before)
         torch.cuda.synchronize(dev)
-        self.capture_seconds += time.perf_counter() - t0
         return _Graph(carry, blocks, valid, hits, graph,
                       {k: n - before[k] for k, n in counted.items()
                        if n != before[k]})
@@ -267,7 +268,10 @@ class ChunkRunner:
             live: np.ndarray) -> torch.Tensor:
         """Advance ``carry`` through the ``(chunk, W)`` slab in place;
         ``live`` (chunk,) says which rows hold a valid lane. Returns the
-        ``(chunk, W)`` hits on the device, without waiting for them."""
+        ``(chunk, W)`` hits on the device, without waiting for them. On
+        the card each replay, with its input and hit copies, is a
+        ``replay`` device interval of the call's record, and the replay
+        alone a ``runner.replay`` span."""
         chunk, lanes = blocks.shape
         hits = torch.zeros((chunk, lanes), dtype=torch.bool,
                            device=blocks.device)
@@ -284,12 +288,14 @@ class ChunkRunner:
         starts = starts[np.logical_or.reduceat(live, starts)]
         for r0 in starts.tolist():
             n = min(g, chunk - r0)
-            cap.blocks[:n].copy_(blocks[r0:r0 + n])
-            cap.valid[:n].copy_(valid[r0:r0 + n])
-            if n < g:
-                cap.valid[n:].zero_()
-            cap.graph.replay()
-            hits[r0:r0 + n].copy_(cap.hits[:n])
+            with spans.device("replay", self.device):
+                cap.blocks[:n].copy_(blocks[r0:r0 + n])
+                cap.valid[:n].copy_(valid[r0:r0 + n])
+                if n < g:
+                    cap.valid[n:].zero_()
+                with spans.span("runner.replay"):
+                    cap.graph.replay()
+                hits[r0:r0 + n].copy_(cap.hits[:n])
         self.replays += len(starts)
         ops.add_launch_counts(cap.launches, len(starts))
         return hits
@@ -370,7 +376,7 @@ class SweepResult(NamedTuple):
     hit_curve: np.ndarray   # (B, T) bool, False past each trace's length
     lengths: np.ndarray     # (B,)
     compiles: int           # graphs this sweep captured (0 = all cached)
-    seconds: float          # wall-clock for this sweep call
+    seconds: float          # this call's span (``perf_counter_ns``)
 
     @property
     def n_traces(self) -> int:
@@ -392,6 +398,21 @@ class SweepResult(NamedTuple):
             return np.where(issued > 0, used / issued, np.nan)
 
 
+def _entry(fn):
+    """A public sweep entry: its call runs inside ``spans.call`` (the
+    outermost on a thread opens the record; ``runtime/spans.py``), and
+    its result's ``seconds`` is the duration of that call's span."""
+    @functools.wraps(fn)
+    def entry(*args, **kwargs):
+        with spans.call(fn.__name__) as call:
+            out = fn(*args, **kwargs)
+        if isinstance(out, StreamResult):
+            return out._replace(
+                result=out.result._replace(seconds=call.seconds))
+        return out._replace(seconds=call.seconds)
+    return entry
+
+
 def _check_lengths(lengths, n: int, t_max: int) -> np.ndarray:
     lengths = (np.full((n,), t_max, np.int64) if lengths is None
                else np.asarray(lengths, np.int64))
@@ -401,6 +422,7 @@ def _check_lengths(lengths, n: int, t_max: int) -> np.ndarray:
     return lengths
 
 
+@_entry
 def sweep(cfg: SimConfig, blocks: np.ndarray,
           lengths: Optional[np.ndarray] = None,
           chunk: int = DEFAULT_CHUNK, unroll: int = DEFAULT_UNROLL,
@@ -419,7 +441,6 @@ def sweep(cfg: SimConfig, blocks: np.ndarray,
     ``compiles`` counts the graphs this call captured. ``shard`` and
     ``devices``: the lane split (:func:`sweep_streaming`).
     """
-    t0 = time.time()
     blocks = np.ascontiguousarray(np.asarray(blocks, np.int32))
     if blocks.ndim != 2:
         raise ValueError(f"blocks must be (B, T), got {blocks.shape}")
@@ -432,8 +453,7 @@ def sweep(cfg: SimConfig, blocks: np.ndarray,
                           shard=shard, device=device,
                           devices=devices).result
     return SweepResult(stats=res.stats, hit_curve=res.hit_curve,
-                       lengths=lengths, compiles=res.compiles,
-                       seconds=time.time() - t0)
+                       lengths=lengths, compiles=res.compiles, seconds=0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -718,6 +738,7 @@ def wide_plan(lengths, lane_width: Optional[int] = None,
                      1, int(lengths.sum()), steps)
 
 
+@_entry
 def sweep_scheduled(cfg: SimConfig,
                     traces: Union[Mapping[str, np.ndarray],
                                   Sequence[np.ndarray], PaddedSuite,
@@ -744,7 +765,6 @@ def sweep_scheduled(cfg: SimConfig,
     ``compiles`` sums the groups' captures. ``shard`` and ``devices``:
     each group's lane split (:func:`sweep_streaming`).
     """
-    t0 = time.time()
     dev = resolve_device(device)
     if not isinstance(traces, np.ndarray):
         if lengths is not None:
@@ -760,33 +780,35 @@ def sweep_scheduled(cfg: SimConfig,
     n, t_max = blocks.shape
     lengths = _check_lengths(lengths, n, t_max)
     if plan is None:
-        plan = wide_plan(lengths, lane_width, chunk)
+        with spans.span("sweep.plan"):
+            plan = wide_plan(lengths, lane_width, chunk)
 
     stats_out = None
     hit = np.zeros((n, t_max), bool)
     compiles = 0
     for g in plan.groups:
-        gb = np.zeros((g.lane_width, g.padded_t), np.int32)
-        gl = np.zeros((g.lane_width,), np.int64)
-        for j, idx in enumerate(g.indices):
-            ln = int(lengths[idx])
-            gb[j, :ln] = blocks[idx, :ln]
-            gl[j] = ln
+        with spans.span("sweep.pad"):
+            gb = np.zeros((g.lane_width, g.padded_t), np.int32)
+            gl = np.zeros((g.lane_width,), np.int64)
+            for j, idx in enumerate(g.indices):
+                ln = int(lengths[idx])
+                gb[j, :ln] = blocks[idx, :ln]
+                gl[j] = ln
         res = sweep(cfg, gb, gl, chunk=g.chunk, shard=shard, device=dev,
                     devices=devices)
         compiles += res.compiles
-        if stats_out is None:
-            stats_out = [np.zeros((n,) + leaf.shape[1:], leaf.dtype)
-                         for leaf in res.stats]
-        for j, idx in enumerate(g.indices):
-            ln = int(lengths[idx])
-            hit[idx, :ln] = res.hit_curve[j, :ln]
-            for leaf_out, leaf in zip(stats_out, res.stats):
-                leaf_out[idx] = leaf[j]
+        with spans.span("sweep.reassemble"):
+            if stats_out is None:
+                stats_out = [np.zeros((n,) + leaf.shape[1:], leaf.dtype)
+                             for leaf in res.stats]
+            for j, idx in enumerate(g.indices):
+                ln = int(lengths[idx])
+                hit[idx, :ln] = res.hit_curve[j, :ln]
+                for leaf_out, leaf in zip(stats_out, res.stats):
+                    leaf_out[idx] = leaf[j]
 
     return SweepResult(stats=Stats(*stats_out), hit_curve=hit,
-                       lengths=lengths, compiles=compiles,
-                       seconds=time.time() - t0)
+                       lengths=lengths, compiles=compiles, seconds=0.0)
 
 
 def sweep_grid(cfgs: Dict[str, SimConfig], blocks: np.ndarray,
@@ -902,7 +924,9 @@ class RingBuffer:
     instead and counts each wait in the stall telemetry: a producer
     that blocked on a full ring bumps ``push_stalls`` (device is the
     bottleneck), a consumer that blocked on an empty ring bumps
-    ``pop_stalls`` (host marshalling is the bottleneck). ``close()``
+    ``pop_stalls`` (host marshalling is the bottleneck). The time
+    blocked is the span ``stream.ring_full`` (push) or
+    ``stream.ring_wait`` (pop) of the current sweep record. ``close()``
     wakes every waiter; a blocking pop on a closed, drained ring
     returns ``None`` (end of stream).
     """
@@ -947,8 +971,9 @@ class RingBuffer:
                     raise RuntimeError(
                         "ring buffer full — pop before pushing")
                 self.push_stalls += 1
-                while len(self._q) >= self.depth and not self._closed:
-                    self._cv.wait()
+                with spans.span("stream.ring_full"):
+                    while len(self._q) >= self.depth and not self._closed:
+                        self._cv.wait()
             if self._closed:
                 raise RuntimeError("ring buffer closed")
             self._q.append(slab)
@@ -962,8 +987,9 @@ class RingBuffer:
                         "ring buffer empty — push (produce) before popping")
                 if not self._closed:
                     self.pop_stalls += 1
-                    while not self._q and not self._closed:
-                        self._cv.wait()
+                    with spans.span("stream.ring_wait"):
+                        while not self._q and not self._closed:
+                            self._cv.wait()
             if not self._q:
                 return None         # closed and fully drained
             slab = self._q.popleft()
@@ -1030,6 +1056,7 @@ def _on(dev: torch.device):
             else contextlib.nullcontext())
 
 
+@_entry
 def sweep_streaming(cfg: SimConfig,
                     traces: Union[Mapping[str, np.ndarray],
                                   Sequence[np.ndarray], PaddedSuite,
@@ -1083,9 +1110,11 @@ def sweep_streaming(cfg: SimConfig,
     (``async_producer=False``: fill the ring, run one slab, bring every
     hit back at the end, with throwaway staging). Stage timings, ring
     stall counters and the overlap ratio surface in
-    :meth:`StreamResult.streaming_stats` under ``"pipeline"``.
+    :meth:`StreamResult.streaming_stats` under ``"pipeline"``; the stage
+    timings are this call's totals of the record's ``stream.produce``,
+    ``stream.consume`` and ``stream.drain`` spans (``runtime/spans.py``).
     """
-    t0 = time.time()
+    rec = spans.current()
     if isinstance(async_producer, np.bool_):
         async_producer = bool(async_producer)
     if not isinstance(async_producer, bool):
@@ -1132,26 +1161,35 @@ def sweep_streaming(cfg: SimConfig,
     shard_devs = _lane_shards(w, shard, device, devices)
     dev = shard_devs[0]
     per = w // len(shard_devs)
-    spans = [slice(i * per, (i + 1) * per) for i in range(len(shard_devs))]
+    cols = [slice(i * per, (i + 1) * per) for i in range(len(shard_devs))]
     chunk = max(1, min(int(chunk), max(1, t_max)))
     tenants = [_Tenant(i, blocks[i], avails[i], int(lengths[i]))
                for i in range(n)]
 
-    runners = [_runner(cfg, unroll, d, i) for i, d in enumerate(shard_devs)]
-    before = sum(r.captures for r in runners)
-    templates = [r.init_batched(per) for r in runners]
-    # on the card: captured at first use
-    carries = [r.carry(per) for r in runners]
-    for c, t in zip(carries, templates):
-        _assign(c, t)
+    stage_names = ("stream.produce", "stream.consume", "stream.drain")
+    stage_s0 = [rec.total_s(k) for k in stage_names]
+    mines0 = ops.launch_counts()["mithril_mine_step"]
+    with spans.span("stream.setup"):
+        runners = [_runner(cfg, unroll, d, i)
+                   for i, d in enumerate(shard_devs)]
+        before = sum(r.captures for r in runners)
+        templates = [r.init_batched(per) for r in runners]
+        # on the card: captured at first use
+        carries = [r.carry(per) for r in runners]
+        for c, t in zip(carries, templates):
+            _assign(c, t)
 
     def lane_stats(parts) -> List[torch.Tensor]:
-        """Every lane's stats leaves (copies), the shards' joined on the
-        first device."""
+        """Every lane's stats leaves and, last, its mining runs
+        (``n_mines``; zeros without MITHRIL): copies, the shards' joined
+        on the first device."""
+        leaves = [list(p["stats"]) + [p["mith"].n_mines if "mith" in p
+                                      else torch.zeros_like(p["stats"][0])]
+                  for p in parts]
         if len(parts) == 1:
-            return [leaf.clone() for leaf in parts[0]["stats"]]
-        return [torch.cat([p["stats"][j].to(dev) for p in parts])
-                for j in range(len(parts[0]["stats"]))]
+            return [leaf.clone() for leaf in leaves[0]]
+        return [torch.cat([p[j].to(dev) for p in leaves])
+                for j in range(len(leaves[0]))]
 
     queue: collections.deque = collections.deque(range(n))
     lanes: List[Optional[int]] = [None] * w
@@ -1170,8 +1208,9 @@ def sweep_streaming(cfg: SimConfig,
     pinned = async_producer and dev.type == "cuda"
     if async_producer:
         pool: _queue_mod.Queue = _queue_mod.Queue()
-        for _ in range(ring_depth + 3):
-            pool.put(_staging(chunk, w, pinned))
+        with spans.span("stream.setup"):
+            for _ in range(ring_depth + 3):
+                pool.put(_staging(chunk, w, pinned))
 
         def alloc() -> _Staging:
             buf = pool.get()
@@ -1201,11 +1240,17 @@ def sweep_streaming(cfg: SimConfig,
             return (tb.to(dev), tv.to(dev), tr.to(dev) if admit else None,
                     None)
 
-    timers = {"produce_s": 0.0, "consume_s": 0.0, "drain_s": 0.0}
-
     def produce() -> Optional[_Slab]:
+        """The next slab, or None once every trace is placed; each slab
+        is a ``stream.produce`` span."""
+        with spans.span("stream.produce") as sp:
+            slab = next_slab()
+            if slab is None:
+                sp.drop()
+        return slab
+
+    def next_slab() -> Optional[_Slab]:
         nonlocal clock
-        tp = time.perf_counter()
         while True:
             t_start = clock
             reset = np.zeros((w,), bool)
@@ -1230,7 +1275,6 @@ def sweep_streaming(cfg: SimConfig,
             if any(la is not None for la in lanes):
                 break
             if not queue:
-                timers["produce_s"] += time.perf_counter() - tp
                 return None     # fully drained
             # every lane idle, nothing arrived yet: fast-forward the
             # clock to the slab containing the head's first arrival
@@ -1280,9 +1324,9 @@ def sweep_streaming(cfg: SimConfig,
         clock = t_start + chunk
         admit = bool(reset.any())
         buf.reset[:] = reset
-        dev_blocks, dev_valid, dev_reset, ready = stage(buf, admit)
-        timers["produce_s"] += time.perf_counter() - tp
-        live = tuple(slab_valid[:, sp].any(1) for sp in spans)
+        with spans.span("stream.stage"):
+            dev_blocks, dev_valid, dev_reset, ready = stage(buf, admit)
+        live = tuple(slab_valid[:, sp].any(1) for sp in cols)
         return _Slab(dev_blocks, dev_valid, dev_reset, live,
                      tuple(placements), tuple(harvest),
                      buf if async_producer else None, ready)
@@ -1300,11 +1344,11 @@ def sweep_streaming(cfg: SimConfig,
     n_slabs, first_slab = 0, True
     current = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
 
+    @spans.within("stream.consume")
     def consume(slab: _Slab) -> torch.Tensor:
         """Reset admitted lanes, run the slab, copy drained lanes' stats;
         returns the slab's hits on the device."""
         nonlocal first_slab, n_slabs
-        tc = time.perf_counter()
         if slab.ready is not None:
             current.wait_event(slab.ready)
             for t in (slab.blocks, slab.valid, slab.reset):
@@ -1312,23 +1356,26 @@ def sweep_streaming(cfg: SimConfig,
                     t.record_stream(current)
         # slab 0 skips the reset outright: the carry IS the template
         if slab.reset is not None and not first_slab:
-            for c, t, sp, d in zip(carries, templates, spans, shard_devs):
-                _masked_reset(c, t, slab.reset[sp].to(d))
+            with spans.span("stream.reset"), spans.device("lane_work", dev):
+                for c, t, sp, d in zip(carries, templates, cols, shard_devs):
+                    _masked_reset(c, t, slab.reset[sp].to(d))
         first_slab = False
-        hits = [r.run(c, slab.blocks[:, sp].to(d), slab.valid[:, sp].to(d),
-                      live)
-                for r, c, sp, d, live in zip(runners, carries, spans,
-                                             shard_devs, slab.live)]
-        hits = hits[0] if len(hits) == 1 else torch.cat(
-            [h.to(dev) for h in hits], 1)
+        with spans.span("runner.run"):
+            hits = [r.run(c, slab.blocks[:, sp].to(d),
+                          slab.valid[:, sp].to(d), live)
+                    for r, c, sp, d, live in zip(runners, carries, cols,
+                                                 shard_devs, slab.live)]
+            hits = hits[0] if len(hits) == 1 else torch.cat(
+                [h.to(dev) for h in hits], 1)
         if slab.harvest:
             # the carry changes in place: copy the stats of the lanes
             # that drained before the next slab runs
-            snaps.append(lane_stats(carries))
+            with spans.span("stream.harvest"), \
+                    spans.device("lane_work", dev):
+                snaps.append(lane_stats(carries))
             for ti, lane in slab.harvest:
                 stash[ti] = (len(snaps) - 1, lane)
         n_slabs += 1
-        timers["consume_s"] += time.perf_counter() - tc
         return hits
 
     t_wall = time.perf_counter()
@@ -1344,7 +1391,7 @@ def sweep_streaming(cfg: SimConfig,
 
         def producer_main():
             try:
-                with _on(dev):
+                with _on(dev), spans.attach(rec):
                     while True:
                         slab = produce()
                         if slab is None:
@@ -1366,29 +1413,33 @@ def sweep_streaming(cfg: SimConfig,
                 hits.record_stream(drain_stream)
                 copied = torch.cuda.Event()
                 copied.record(drain_stream)
-            copied.synchronize()
+            with spans.span("stream.drain_wait"):
+                copied.synchronize()
             return buf.hits
 
+        @spans.within("stream.drain")
+        def drain_one(hits, done, slab) -> None:
+            try:
+                if not drain_err:
+                    h = fetch(hits, done, slab.buffers)
+                    with spans.span("stream.scatter"):
+                        scatter_hits(h, slab.placements)
+            except BaseException as e:  # noqa: BLE001
+                drain_err.append(e)     # keep draining: never
+            finally:                    # block the consumer
+                if done is not None:
+                    with spans.span("stream.drain_wait"):
+                        done.synchronize()
+                        slab.ready.synchronize()
+                pool.put(slab.buffers)
+
         def drain_main():
-            with _on(dev):
+            with _on(dev), spans.attach(rec):
                 while True:
                     item = drain_q.get()
                     if item is None:
                         return
-                    hits, done, slab = item
-                    td = time.perf_counter()
-                    try:
-                        if not drain_err:
-                            scatter_hits(fetch(hits, done, slab.buffers),
-                                         slab.placements)
-                    except BaseException as e:  # noqa: BLE001
-                        drain_err.append(e)     # keep draining: never
-                    finally:                    # block the consumer
-                        if done is not None:
-                            done.synchronize()
-                            slab.ready.synchronize()
-                        timers["drain_s"] += time.perf_counter() - td
-                        pool.put(slab.buffers)
+                    drain_one(*item)
 
         producer = threading.Thread(target=producer_main, daemon=True,
                                     name="sweep-producer")
@@ -1408,10 +1459,11 @@ def sweep_streaming(cfg: SimConfig,
                     done.record(current)
                 drain_q.put((hits, done, slab))
         finally:
-            ring.close()        # unblocks a producer stuck mid-push
-            drain_q.put(None)
-            drainer.join()
-            producer.join()
+            with spans.span("stream.join"):
+                ring.close()    # unblocks a producer stuck mid-push
+                drain_q.put(None)
+                drainer.join()
+                producer.join()
         if prod_err:
             raise prod_err[0]
         if drain_err:
@@ -1433,28 +1485,37 @@ def sweep_streaming(cfg: SimConfig,
             slab = ring.pop()
             hit_records.append((consume(slab), slab.placements))
 
-        td = time.perf_counter()
-        for hits, placements in hit_records:
-            scatter_hits(hits.cpu().numpy(), placements)
-        timers["drain_s"] += time.perf_counter() - td
-
+        with spans.span("stream.drain"):
+            for hits, placements in hit_records:
+                with spans.span("stream.drain_wait"):
+                    h = hits.cpu().numpy()
+                with spans.span("stream.scatter"):
+                    scatter_hits(h, placements)
     wall_s = time.perf_counter() - t_wall
-    mat: Dict[int, List[np.ndarray]] = {}
-    rows = []
-    for ti in range(n):
-        k, lane = stash[ti]
-        if k not in mat:
-            src = lane_stats(templates) if k < 0 else snaps[k]
-            mat[k] = [leaf.cpu().numpy() for leaf in src]
-        rows.append([leaf[lane] for leaf in mat[k]])
-    stats = Stats(*(np.stack([r[j] for r in rows])
-                    for j in range(len(Stats._fields))))
+    with spans.span("stream.collect"):
+        mat: Dict[int, List[np.ndarray]] = {}
+        rows = []
+        mines = 0       # a zero-length trace (the template) mined nothing
+        for ti in range(n):
+            k, lane = stash[ti]
+            if k not in mat:
+                src = lane_stats(templates) if k < 0 else snaps[k]
+                mat[k] = [leaf.cpu().numpy() for leaf in src]
+            rows.append([leaf[lane] for leaf in mat[k]])
+            mines += int(mat[k][-1][lane]) if k >= 0 else 0
+        stats = Stats(*(np.stack([r[j] for r in rows])
+                        for j in range(len(Stats._fields))))
+    spans.count("mining.runs", mines)
+    spans.count("mining.launches",
+                ops.launch_counts()["mithril_mine_step"] - mines0)
 
-    busy = timers["produce_s"] + timers["consume_s"] + timers["drain_s"]
+    produce_s, consume_s, drain_s = (rec.total_s(k) - t for k, t in
+                                     zip(stage_names, stage_s0))
+    busy = produce_s + consume_s + drain_s
     pipeline = {
-        "produce_s": round(timers["produce_s"], 4),
-        "consume_s": round(timers["consume_s"], 4),
-        "drain_s": round(timers["drain_s"], 4),
+        "produce_s": round(produce_s, 4),
+        "consume_s": round(consume_s, 4),
+        "drain_s": round(drain_s, 4),
         "wall_s": round(wall_s, 4),
         "producer_stalls": int(ring.push_stalls),
         "consumer_stalls": int(ring.pop_stalls),
@@ -1462,7 +1523,7 @@ def sweep_streaming(cfg: SimConfig,
     }
     result = SweepResult(stats=stats, hit_curve=hit_curve, lengths=lengths,
                          compiles=sum(r.captures for r in runners) - before,
-                         seconds=time.time() - t0)
+                         seconds=0.0)
     return StreamResult(result=result, lane_width=w, chunk=chunk,
                         n_slabs=n_slabs, async_producer=async_producer,
                         pipeline=pipeline)

@@ -1,5 +1,6 @@
-"""Runtime pieces of training: fault tolerance (``fault``) and gradient
-compression (``compress``: its numerics and the int8 all-reduce)."""
+"""Runtime pieces: fault tolerance (``fault``) and gradient compression
+(``compress``: its numerics and the int8 all-reduce) for training, and
+the sweep engine's spans, counters and device events (``spans``)."""
 
 from .fault import (HeartbeatMonitor, StragglerPolicy, WorkerFailure,
                     run_with_restarts)

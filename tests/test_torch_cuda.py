@@ -865,6 +865,77 @@ def test_launch_counters_count_the_replays(cuda):
         assert n == want * runner.replays + want // 8, name
 
 
+def window_idle_share():
+    """The benchmark's ``window.idle_share`` reader."""
+    import importlib.util
+    import pathlib
+    import sys
+    bench = pathlib.Path(__file__).resolve().parents[1] / "port_bench"
+    if str(bench) not in sys.path:
+        sys.path.insert(0, str(bench))
+    spec = importlib.util.spec_from_file_location(
+        "pb_window_idle_share", bench / "metrics" / "window.idle_share.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+@pytest.mark.cuda
+def test_the_sweep_record_on_the_card(cuda, monkeypatch):
+    """A sweep's record on the card: the capture's span feeds
+    ``capture_seconds``; a repeat has a ``runner.replay`` span and a
+    ``replay`` device interval for each replay the runner counted, the
+    barrier's launches, and reads no event inside the call; the window's
+    idle share from its events lies in [0, 100]%."""
+    from repro_torch.cache import chunk_runner, sweep
+    from repro_torch.runtime import spans
+    sw = sweep_module()
+    sw.reset_runners()
+    cfg = runner_configs()["mithril-lru"]
+    blocks = runner_blocks(4, 900, seed=2)
+    lengths = np.array([900, 850, 400, 30])
+    sweep(cfg, blocks, lengths, chunk=100, unroll=8, device=cuda)
+    runner = chunk_runner(cfg, 8, cuda)
+    first = spans.records()[-1]
+    assert first.count_of("runner.capture") == 1
+    assert first.total_s("runner.capture") == runner.capture_seconds > 0
+    replays = runner.replays
+    reads = []
+    elapsed = torch.cuda.Event.elapsed_time
+
+    def counted(self, end):
+        reads.append(end)
+        return elapsed(self, end)
+
+    monkeypatch.setattr(torch.cuda.Event, "elapsed_time", counted)
+    sweep(cfg, blocks, lengths, chunk=100, unroll=8, device=cuda)
+    assert reads == []
+    rec = spans.records()[-1]
+    n = runner.replays - replays
+    assert n == 9 * 13 and rec.count_of("runner.replay") == n
+    assert len(rec.events["replay"]) == n
+    assert "runner.capture" not in rec.spans
+    assert rec.counters["mining.launches"] == 8 * n
+    share = window_idle_share()({})
+    assert reads and 0.0 <= share <= 100.0
+    # under the profiler the spans are host operations of the trace and
+    # add nothing on the device's side (a user annotation would)
+    from torch.autograd import profiler as autograd_profiler
+    autograd_profiler.profile(use_kineto=True, use_device="cuda").__enter__()
+    try:
+        sweep(cfg, blocks, lengths, chunk=100, unroll=8, device=cuda)
+        torch.cuda.synchronize()
+    finally:
+        events = torch.autograd._disable_profiler().events()
+    assert spans.records()[-1].profiled is True
+    assert spans.records()[-1].events == {}     # the profiler times it
+    on_device = torch.autograd.DeviceType.CUDA
+    host = [e.name() for e in events if e.device_type() != on_device]
+    device = [e.name() for e in events if e.device_type() == on_device]
+    assert host.count("runner.replay") == n and "stream.consume" in host
+    assert not [d for d in device if d in spans.records()[-1].spans]
+
+
 @pytest.mark.cuda
 def test_a_failed_capture_raises(cuda):
     """A step that reads the host cannot be captured: the runner raises

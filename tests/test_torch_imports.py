@@ -68,7 +68,9 @@ ALONE_MODULES = ["repro_torch.cache.tiered", "repro_torch.launch.serve",
                  "repro_torch.roofline.analysis",
                  "repro_torch.roofline.touched", "repro_torch.launch.mesh",
                  "repro_torch.launch.specs", "repro_torch.launch.dryrun",
-                 "repro_torch.checkpoint.elastic"]
+                 "repro_torch.checkpoint.elastic",
+                 # the sweep engine's spans
+                 "repro_torch.runtime.spans"]
 
 
 @pytest.mark.parametrize("name", ALONE_MODULES)
