@@ -25,7 +25,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    full), float32 within 2e-5 and bfloat16 within 2e-2; the lookup
    kernel exactly, Q = 1 and EMPTY queries included; the serving tier's
    miss launch (record event + probe, ``mithril_miss_step``) exactly, at
-   the serving tables, need = 0 and 1. ``ms`` is the median CUDA-event
+   the serving tables, need = 0 and 1; the request step's cache set
+   (``cache_access``, ``mithril_prefetch``) exactly, every output and
+   carry leaf, on card copies of a warm state, with the mining barrier
+   between steps, at the benchmark's and the paper's tables (135 lanes),
+   16 lanes FIFO and one paper lane. ``ms`` is the median CUDA-event
    time of one call as the main path makes it (wrapper included; for
    the miss launch the host clock around the tier's whole call, the wait
    for the result included; for the mining run a call on a fresh copy of
@@ -53,7 +57,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    lanes through the runner. Before it: its first 2,000 steps as the
    eager loop over ``build_batched_step``'s step and through the runner,
    every carry leaf and hit row equal, both timed; its first 2,048 steps
-   through runners of G = 1, 16 and 128 steps a graph, captured, then
+   through runners of G = 1, 16, 64 and 128 steps a graph, captured, then
    timed on a repeat that must capture nothing. 4 of its traces, one per
    family, are run again on the CPU through the plain versions (in a
    child process, meanwhile) and must give equal ``Stats`` (the child
@@ -245,7 +249,7 @@ REAL_LEN = 50_000
 CROSS_TRACES = ("seq000", "loop003", "midfreq005", "mixed007")
 REPLAY_STEPS = 2_000          # the replay-equals-eager prefix
 UNROLL_STEPS = 2_048          # the prefix that G is timed on (a multiple
-UNROLLS = (1, 16, 128)        # of each G)
+UNROLLS = (1, 16, 64, 128)    # of each G)
 # a copy of benchmarks/serving_bench.py's PIPE_SCALES["quick"] (a CPU test
 # holds it equal) and the deterministic fields of its streaming rows
 PIPE_QUICK = dict(n_streams=6, stream_len=2500, lane_width=4, chunk=256)
@@ -280,12 +284,31 @@ KERNEL_INFO = {
     "mithril_mine_step": (
         "src/repro_torch/kernels/csrc/mithril_mine.cu",
         "src/repro/kernels/mithril_mine_batched.py:72"),
+    # the request step's cache set, which the reference computes as plain
+    # jnp code: the demand access with its statistics and record event,
+    # and the MITHRIL lookup with its prefetch inserts
+    "cache_access": (
+        "src/repro_torch/kernels/csrc/cache_set.cu",
+        "src/repro/cache/base.py:160 (jnp, no Pallas kernel)"),
+    "mithril_prefetch": (
+        "src/repro_torch/kernels/csrc/cache_set.cu",
+        "src/repro/core/mithril.py:64 with src/repro/cache/base.py:208 "
+        "(jnp, no Pallas kernel)"),
 }
 ALSO_REPLACES = {"mithril_miss_step": "src/repro/kernels/hash_lookup.py:62",
                  "mithril_mine_step": "src/repro/kernels/mithril_mine.py:88"}
 # the codes launches keep the TPU kernels' contract for callers that pass
 # a pairwise function; the main path mines through mithril_mine_step
 OFF_PATH = ("mithril_pairwise", "mithril_pairwise_batched")
+
+
+def kernel_path(counts) -> bool:
+    """Sweeps ran through the hand-written kernels alone: the cache access
+    with its record event, the MITHRIL prefetch and the mining run, and
+    no codes launch."""
+    return bool(counts["cache_access"] and counts["mithril_prefetch"]
+                and counts["mithril_mine_step"]
+                and not any(counts[k] for k in OFF_PATH))
 
 
 def emit(obj) -> None:
@@ -1113,6 +1136,131 @@ def phase_serving_kernels(dev, cases, timing, errs, floor):
             lookup(nb, ways, plist, n_q, tag)
 
 
+def cache_set_config(paper: bool, policy: str = "lru"):
+    """MITHRIL over ``policy`` at the benchmark's shape (512 blocks of 16
+    ways, ``SUITE_MITHRIL``: 32 buckets) or the paper's (65,536 blocks,
+    ``PAPER_MITHRIL``: 4,096 buckets); record on miss."""
+    from repro_torch.cache import SimConfig
+    from repro_torch.configs import PAPER_MITHRIL, SUITE_MITHRIL
+    return SimConfig(capacity=PAPER_CAPACITY if paper else PARITY_CAPACITY,
+                     ways=16, policy=policy, use_mithril=True,
+                     mithril=PAPER_MITHRIL if paper else SUITE_MITHRIL)
+
+
+def warm_cache_set(cfg, lanes, dev, warm: int = 4000, more: int = 400):
+    """The state the cache set meets on the main path: two copies of the
+    end state of a sweep of ``warm`` requests of ``lanes`` mixed traces
+    (the runner's carry: cache, statistics, MITHRIL state), and the
+    traces' next ``more`` requests, (more, lanes) on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.cache import chunk_runner, sweep
+    from repro_torch.cache.base import pack_cache
+    from repro_torch.traces import mixed
+    traces = np.stack([mixed(warm + more, seed=s)
+                       for s in range(1, lanes + 1)]).astype(np.int32)
+    sweep(cfg, traces[:, :warm], device=dev)
+    carry = chunk_runner(cfg, device=dev).carry(lanes)
+    sides = []
+    for _ in range(2):
+        side = {k: type(carry[k])(*(x.clone() for x in carry[k]))
+                for k in ("cache", "stats", "mith")}
+        side["cache"] = pack_cache(*side["cache"])
+        sides.append(side)
+    nxt = torch.as_tensor(np.ascontiguousarray(traces[:, warm:].T),
+                          device=dev)
+    return sides, nxt
+
+
+def check_cache_set(cfg, lanes, dev, rng, steps: int = 120) -> dict:
+    """The cache-set kernels (``ops.cache_access``, ``ops.mithril_prefetch``)
+    and their plain versions (``cache.simulator.cache_access_plain``,
+    ``mithril_prefetch_plain``) on two copies of one warm state on the
+    card, with the step's mining barrier between them (the mining kernel
+    on both sides), about a tenth of the requests invalid: every output
+    and every carry leaf equal after every step. Then each kernel and its
+    plain version timed on the traces' next requests (one a call, no
+    barrier between the calls), the least bytes and operations the mean
+    of the first 33 of those calls (``roofline.touched``, on a copy)."""
+    import itertools
+    import torch
+    from repro_torch.cache.base import pack_cache
+    from repro_torch.cache.simulator import (cache_access_plain,
+                                             mithril_prefetch_plain)
+    from repro_torch.core import mithril
+    from repro_torch.kernels import ops
+    m = cfg.mithril
+    first = m.record_on.split("+")[0]
+    (a, b), nxt = warm_cache_set(cfg, lanes, dev)
+    valid = torch.as_tensor(rng.random((steps, lanes)) > 0.1, device=dev)
+    sides = ((a, ops.cache_access, ops.mithril_prefetch),
+             (b, cache_access_plain, mithril_prefetch_plain))
+    err, mined = 0, 0
+    for t in range(steps):
+        blk, val = nxt[t], valid[t]
+        outs = []
+        for side, access, prefetch in sides:
+            acc = access(side["cache"], side["stats"], blk, val, cfg.policy,
+                         side["mith"], first, m.mine_rows)
+            mithril.mine_batched(m, side["mith"], acc.need)
+            prefetch(side["cache"], side["stats"], side["mith"], blk, val, m)
+            outs.append(torch.stack([acc.hit.int(), acc.used_src,
+                                     *(x.int() for x in acc.evicted),
+                                     acc.need.int()]))
+        torch.cuda.synchronize()
+        mined += int(outs[1][-1].sum())
+        err = max(err, max_err(outs[0], outs[1]))
+        where = (f"(L={lanes}, NB={cfg.capacity // cfg.ways}, "
+                 f"{cfg.policy}, step {t})")
+        if not torch.equal(outs[0], outs[1]):
+            fail(f"cache-set kernels differ from plain in the outputs "
+                 f"{where}")
+        for part in ("cache", "stats", "mith"):
+            for name, x, y in zip(a[part]._fields, a[part], b[part]):
+                if not torch.equal(x, y):
+                    fail(f"cache-set kernels differ from plain in {part}."
+                         f"{name} {where}")
+    ones = torch.ones(lanes, dtype=torch.bool, device=dev)
+    rest = nxt[steps:]
+
+    def work(fn):
+        """Mean least bytes and operations of 33 calls, on a copy."""
+        c = {k: type(v)(*(x.clone() for x in v)) for k, v in a.items()}
+        c["cache"] = pack_cache(*c["cache"])
+        got = [fn(cfg, c, rest[i % len(rest)], ones) for i in range(33)]
+        return (statistics.mean(x for x, _ in got),
+                statistics.mean(y for _, y in got))
+
+    out = {"err": err, "lanes_mined": mined}
+    for name, kern_fn, plain_fn, work_fn in (
+            ("cache_access",
+             lambda s, x: ops.cache_access(
+                 s["cache"], s["stats"], x, ones, cfg.policy, s["mith"],
+                 first, m.mine_rows),
+             lambda s, x: cache_access_plain(
+                 s["cache"], s["stats"], x, ones, cfg.policy, s["mith"],
+                 first, m.mine_rows),
+             touched().cache_access_work),
+            ("mithril_prefetch",
+             lambda s, x: ops.mithril_prefetch(
+                 s["cache"], s["stats"], s["mith"], x, ones, m),
+             lambda s, x: mithril_prefetch_plain(
+                 s["cache"], s["stats"], s["mith"], x, ones, m),
+             touched().mithril_prefetch_work)):
+        by, n_ops = work(work_fn)
+        it = itertools.count()
+
+        def kern():
+            kern_fn(a, rest[next(it) % len(rest)])
+
+        def plain():
+            plain_fn(b, rest[next(it) % len(rest)])
+        out[name] = {"ms": cuda_ms(kern), "host_ms": host_ms(kern, reps=30),
+                     "device_ms": device_ms(kern, f"{name}_kernel"),
+                     "plain_ms": cuda_ms(plain), "bytes": by, "ops": n_ops}
+    return out
+
+
 def phase_kernels(dev):
     """Every kernel against its plain version. Returns, per kernel, the
     timing at the shape the main path launches it most (record: the
@@ -1258,6 +1406,38 @@ def phase_kernels(dev):
     mine_step(P, 135, "paper tables, no lane mines", frac=0.0,
               timed="mithril_mine_step@no_need", plain_reps=3)
     phase_serving_kernels(dev, cases, timing, errs, floor)
+
+    def cache_set(lanes, paper, tag, policy="lru", timed=None):
+        cfg = cache_set_config(paper, policy)
+        t = check_cache_set(cfg, lanes, dev, rng)
+        for name in ("cache_access", "mithril_prefetch"):
+            k = t[name]
+            errs[name] = max(errs[name], t["err"])
+            cases.append({"kernel": name, "L": lanes,
+                          "NB": cfg.capacity // cfg.ways, "W": cfg.ways,
+                          "policy": policy, "case": tag,
+                          "lanes_mined": t["lanes_mined"], "ms": k["ms"],
+                          "host_ms": k["host_ms"],
+                          "device_ms": k["device_ms"],
+                          "plain_ms": k["plain_ms"],
+                          "bound_ms": touched().bound_ms(k["bytes"],
+                                                         k["ops"])[0],
+                          "floor_ratio": floor_ratio(k["device_ms"],
+                                                     floor)})
+            if timed:
+                timing[name + timed] = (k["ms"], k["plain_ms"], k["bytes"],
+                                        k["ops"], k["device_ms"], None,
+                                        {"host_ms": k["host_ms"],
+                                         "L": lanes})
+
+    # the benchmark's cells and the parity sweeps: SUITE tables, 32
+    # buckets; the real-size and paper-mining sweeps: 4,096 buckets
+    cache_set(135, False, "suite tables, 32 x 16 (the benchmark)",
+              timed="")
+    cache_set(135, True, "paper tables, 4,096 x 16 (real size)",
+              timed="@paper")
+    cache_set(16, False, "suite tables, FIFO", policy="fifo")
+    cache_set(1, True, "paper tables, one lane")
     # the serving tier's miss at MCFG's tables
     t = check_miss(serving_mcfg(), dev, rng)
     errs["mithril_miss_step"] = t["err"]
@@ -1276,7 +1456,8 @@ def phase_kernels(dev):
     emit({"phase": "kernels", "seconds": round(time.time() - t0, 3),
           "exact": ["mithril_record", "mithril_pairwise_batched",
                     "mithril_pairwise", "hash_lookup", "mithril_miss_step",
-                    "mithril_mine_step"],
+                    "mithril_mine_step", "cache_access",
+                    "mithril_prefetch"],
           "tolerance": {"paged_decode": DECODE_TOL,
                         "paged_decode_bfloat16_rounding":
                             DECODE_BF16_ROUNDING},
@@ -1467,10 +1648,9 @@ def phase_parity() -> dict:
         fail(f"parity: {bad or 'labels missing'} differ from "
              f"BENCH_baseline_quick.json (or a repeat sweep differed or "
              f"captured again)")
-    if counts["mithril_record"] == 0 or counts["mithril_mine_step"] == 0 \
-            or any(counts[k] for k in OFF_PATH):
-        fail(f"parity: the sweeps did not record and mine through the "
-             f"record kernel and the mining run alone: {counts}")
+    if not kernel_path(counts):
+        fail(f"parity: the sweeps did not access, record and mine through "
+             f"the cache-set kernels and the mining run alone: {counts}")
     if total["compiles"] != 9:
         fail(f"parity: {total['compiles']} graphs captured, not one a "
              f"label")
@@ -1513,7 +1693,7 @@ def phase_profile(dev, blocks, steps: int = 300):
     sweep against the profiler's count of the record kernel and the
     mining run (they must agree)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.cache import chunk_runner, sweep
     from repro_torch.kernels import ops
     blocks = blocks[:, :steps]
@@ -1521,9 +1701,16 @@ def phase_profile(dev, blocks, steps: int = 300):
     runner = chunk_runner(cfg, device=dev)
     sweep(cfg, blocks[:, :20], device=dev)          # warm the allocator
     torch.cuda.synchronize()
-    counts, replays = ops.launch_counts(), runner.replays
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the profiler's own warm-up (its events dropped) runs a short sweep:
+    # once, late in this process, a trace started cold counted one
+    # cache_access fewer than the launch counters; its cause is unknown
+    # and cold traces have not shown it since (PERF.md)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        sweep(cfg, blocks[:, :20], device=dev)
+        torch.cuda.synchronize()
+        prof.step()
+        counts, replays = ops.launch_counts(), runner.replays
         t0 = time.perf_counter()
         res = sweep(cfg, blocks, device=dev)
         torch.cuda.synchronize()
@@ -1536,6 +1723,9 @@ def phase_profile(dev, blocks, steps: int = 300):
     run = (runner.replays - replays) * runner.unroll
     traced = {name: sum(n for k, _, n in kernels if sub in k)
               for name, sub in (("mithril_record", "record_kernel"),
+                                ("cache_access", "cache_access_kernel"),
+                                ("mithril_prefetch",
+                                 "mithril_prefetch_kernel"),
                                 ("mithril_mine_step", "mine_step_kernel"))}
     rows.sort(key=lambda r: -r[1])
     info = {"phase": "profile", "steps": steps, "steps_replayed": run,
@@ -1702,10 +1892,11 @@ def phase_real(dev, child: subprocess.Popen, n_requests: int = REAL_LEN):
     if bad:
         fail(f"real size: the runners of G = {bad} differ, or captured "
              f"again on a repeat")
-    if counts["mithril_record"] < steps or \
-            counts["mithril_mine_step"] < steps:
-        fail(f"real size: the replays did not count a record launch and a "
-             f"mining run a step: {counts}")
+    if counts["cache_access"] < steps or \
+            counts["mithril_mine_step"] < steps or \
+            counts["mithril_prefetch"] < steps:
+        fail(f"real size: the replays did not count an access (with its "
+             f"record event), a mining run and a prefetch a step: {counts}")
     return counts, (names, blocks, lengths, stats)
 
 
@@ -1976,10 +2167,10 @@ def phase_paper(dev, child: subprocess.Popen, floor: float) -> dict:
              f"across mining barriers ({replay})")
     if not (prof["mining_runs"] > 0 and prof["launches_that_mined"] > 0):
         fail(f"paper mining: the profiled window saw no mining run {prof}")
-    if counts["mithril_record"] < PAPER_LEN or \
+    if counts["cache_access"] < PAPER_LEN or \
             counts["mithril_mine_step"] < PAPER_LEN:
-        fail(f"paper mining: the replays did not count a record launch and "
-             f"a mining run a step: {counts}")
+        fail(f"paper mining: the replays did not count an access (with its "
+             f"record event) and a mining run a step: {counts}")
     return counts
 
 
@@ -2403,10 +2594,10 @@ def phase_learned(dev) -> dict:
                 and v["loss_max_abs_diff"] <= TRAIN_TOL["loss"]):
             fail(f"learned: {kind} trained on the card differs from the "
                  f"CPU beyond {TRAIN_TOL}: {v}")
-    if counts["mithril_record"] == 0 or counts["mithril_mine_step"] == 0 \
-            or any(counts[k] for k in OFF_PATH):
-        fail(f"learned: the searches did not record and mine through the "
-             f"record kernel and the mining run alone: {counts}")
+    if not kernel_path(counts):
+        fail(f"learned: the searches did not access, record and mine "
+             f"through the cache-set kernels and the mining run alone: "
+             f"{counts}")
     return counts
 
 
@@ -3214,7 +3405,7 @@ def phase_model(dev, child: subprocess.Popen) -> dict:
         bad.append("expert trace differs from the CPU's")
     if not expert["stats_equal_cpu"]:
         bad.append("expert Stats differ from the CPU's")
-    if not (counts["mithril_record"] and counts["mithril_mine_step"]):
+    if not (counts["cache_access"] and counts["mithril_mine_step"]):
         bad.append(f"expert prefetch launched {counts}")
     if bad:
         fail(f"model: {bad}")
@@ -3973,10 +4164,10 @@ def phase_distribution(dev, child: subprocess.Popen) -> dict:
     if not (two["n_shards"] == 2 and two["stats_equal"]
             and two["hits_equal"]):
         bad.append(f"the two-runner sweep differs from shard=False: {two}")
-    if not (two["launches"]["mithril_record"]
+    if not (two["launches"]["cache_access"]
             and two["launches"]["mithril_mine_step"]):
         bad.append(f"the two-runner sweep launched {two['launches']}")
-    if not (counts["mithril_record"] and counts["mithril_mine_step"]):
+    if not (counts["cache_access"] and counts["mithril_mine_step"]):
         bad.append(f"the sweeps launched {counts}")
     for name, cell in info["dryrun"].items():
         if not cell["flops_per_device"] > 0:

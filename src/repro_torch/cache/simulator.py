@@ -15,6 +15,7 @@ lane — and the segments update it in place.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Union
 
 import numpy as np
@@ -22,6 +23,8 @@ import torch
 
 from ..core import MithrilConfig, mithril
 from ..core.hashindex import EMPTY, lanes_of
+from ..kernels import ops
+from ..kernels.cache_set import Access
 from ..learn.policy import LearnedConfig, make_scorer
 from . import base
 from .amp import (AmpConfig, amp_access, amp_feedback_evicted,
@@ -114,6 +117,46 @@ def _apply_prefetches(cfg, cache, stats, cands, src, enable, scorer=None):
     return cache, stats, evs
 
 
+def cache_access_plain(cache, stats, block, valid, policy: str = "lru",
+                       mith=None, record_on=None, mine_rows: int = 0,
+                       scorer=None, assoc_hint=None, hit=None) -> Access:
+    """The step's demand access of every lane with its statistics, then
+    the record event of ``record_on`` (``"miss"``, ``"evict"``, ``"all"``
+    or None) on ``mith``, in place: the plain version of
+    ``ops.cache_access`` (its CPU path), and the card's path under a
+    learned ``scorer`` (with its ``assoc_hint``), which the kernel does
+    not take. The record event runs through ``ops.mithril_record_fused``.
+    ``hit``, if given, receives the hit row."""
+    stats.requests.add_(valid.to(torch.int32))
+    _, hit_now, used_src, ev = base.access(cache, block, policy,
+                                           enabled=valid, scorer=scorer,
+                                           assoc_hint=assoc_hint)
+    stats.hits.add_(hit_now.to(torch.int32))
+    _count(stats.pf_used, used_src, used_src != PF_NONE)
+    _count(stats.pf_evicted_unused, ev.pf_src, ev.unused_pf)
+    need = None
+    if record_on is not None:
+        blk, en = {"miss": (block, valid & ~hit_now),
+                   "evict": (ev.block, ev.block != EMPTY),
+                   "all": (block, valid)}[record_on]
+        ops.mithril_record_fused(mith, blk, en)
+        need = (mith.mine_fill >= mine_rows) & valid
+    if hit is not None:
+        hit_now = hit.copy_(hit_now)
+    return Access(hit_now, used_src, ev, need)
+
+
+def mithril_prefetch_plain(cache, stats, mith, block, valid, mcfg,
+                           scorer=None) -> None:
+    """The MITHRIL lookup of every lane's block and the prefetch inserts
+    of its candidates, in place: the plain version of
+    ``ops.mithril_prefetch``, and the card's path under a learned
+    ``scorer``."""
+    cands = mithril.lookup(mcfg, mith, block)
+    _apply_prefetches(None, cache, stats, cands, PF_MITHRIL, valid,
+                      scorer=scorer)
+
+
 def build_segments(cfg: SimConfig, device: Device = None):
     """Per-lane step split into segments separated by mining barriers.
 
@@ -124,12 +167,30 @@ def build_segments(cfg: SimConfig, device: Device = None):
     ``hit``, ``used_src``, the demand eviction) between segments.
     ``mine_after=True`` marks a point where a MITHRIL recording event
     may have filled the mining table, so the mining trigger MUST run
-    before the next segment (the record/maybe_mine contract).
-    ``aux["valid"]`` gates every state write at source, so an invalid
-    (padded-tail) request is a bit-exact no-op.
+    before the next segment (the record/maybe_mine contract); such a
+    segment leaves the barrier's mask in ``aux["need"]`` (the lanes,
+    valid, whose mining table is full). ``aux["valid"]`` gates every
+    state write at source, so an invalid (padded-tail) request is a
+    bit-exact no-op. A ``aux["hit_out"]`` tensor receives the hit row.
+
+    The cache set goes through ``ops.cache_access`` (the demand access,
+    its statistics and the first recording event) and
+    ``ops.mithril_prefetch`` (the MITHRIL lookup and its inserts): one
+    launch each on the card, the plain composition on the CPU. A learned
+    scorer (an arbitrary function of the way features, which the kernels
+    do not take) runs :func:`cache_access_plain` and
+    :func:`mithril_prefetch_plain` on either device.
     """
     rec_on = cfg.mithril.record_on
+    # the recording event before the first barrier runs inside the access
+    first_rec = rec_on.split("+")[0] if cfg.use_mithril else None
+    mine_rows = cfg.mithril.mine_rows
     scorer = make_scorer(cfg.learned) if cfg.use_learned else None
+    if scorer is None:
+        access, prefetch = ops.cache_access, ops.mithril_prefetch
+    else:
+        access = functools.partial(cache_access_plain, scorer=scorer)
+        prefetch = functools.partial(mithril_prefetch_plain, scorer=scorer)
 
     def init_carry(lanes: int = 1):
         carry = {"cache": base.init_cache(cfg.capacity, cfg.ways, device,
@@ -144,47 +205,25 @@ def build_segments(cfg: SimConfig, device: Device = None):
         return carry
 
     def seg_access(carry, block, aux):
-        """Demand access + hit/eviction statistics."""
-        valid = aux["valid"]
-        stats = carry["stats"]
-        stats.requests.add_(valid.to(torch.int32))
+        """Demand access + hit/eviction statistics, then the first
+        recording event."""
         # association-count feature for learned insertion (a pure
         # pf-table read, so no mining-barrier interaction)
         hint = (mithril.assoc_count(cfg.mithril, carry["mith"], block)
                 if cfg.use_learned and cfg.use_mithril else None)
-        _, hit, used_src, ev = base.access(carry["cache"], block, cfg.policy,
-                                           enabled=valid, scorer=scorer,
-                                           assoc_hint=hint)
-        stats.hits.add_(hit.to(torch.int32))
-        _count(stats.pf_used, used_src, used_src != PF_NONE)
-        _count(stats.pf_evicted_unused, ev.pf_src, ev.unused_pf)
-        return carry, {**aux, "hit": hit, "used_src": used_src, "ev": ev}
-
-    def seg_record_miss(carry, block, aux):
-        mithril.record_event(cfg.mithril, carry["mith"], block,
-                             enabled=aux["valid"] & ~aux["hit"])
-        return carry, aux
+        kw = {} if hint is None else {"assoc_hint": hint}
+        acc = access(carry["cache"], carry["stats"], block, aux["valid"],
+                     cfg.policy, carry.get("mith"), first_rec, mine_rows,
+                     hit=aux.get("hit_out"), **kw)
+        return carry, {**aux, "hit": acc.hit, "used_src": acc.used_src,
+                       "ev": base.Evicted(*acc.evicted), "need": acc.need}
 
     def seg_record_evict(carry, block, aux):
-        ev = aux["ev"]
-        mithril.record_event(cfg.mithril, carry["mith"], ev.block,
-                             enabled=ev.block != EMPTY)
-        return carry, aux
-
-    def seg_record_all(carry, block, aux):
-        mithril.record_event(cfg.mithril, carry["mith"], block,
-                             enabled=aux["valid"])
-        return carry, aux
-
-    # ``record_gate`` marks a segment as a pure MITHRIL recording event
-    # and exposes its (block, enabled) expressions; the batched step
-    # (sweep.py) routes it through ``mithril.record_event_batched`` with
-    # the fused kernel. The expressions MUST mirror the segment bodies.
-    seg_record_miss.record_gate = \
-        lambda block, aux: (block, aux["valid"] & ~aux["hit"])
-    seg_record_evict.record_gate = \
-        lambda block, aux: (aux["ev"].block, aux["ev"].block != EMPTY)
-    seg_record_all.record_gate = lambda block, aux: (block, aux["valid"])
+        """The second recording event of ``miss+evict``."""
+        ev, mith = aux["ev"], carry["mith"]
+        ops.mithril_record_fused(mith, ev.block, ev.block != EMPTY)
+        return carry, {**aux,
+                       "need": (mith.mine_fill >= mine_rows) & aux["valid"]}
 
     def seg_prefetch(carry, block, aux):
         """Prefetch issue for every enabled layer (no mining in here)."""
@@ -194,9 +233,7 @@ def build_segments(cfg: SimConfig, device: Device = None):
 
         # MITHRIL prefetch-list check (Alg. 3 pFlag path)
         if cfg.use_mithril:
-            cands = mithril.lookup(cfg.mithril, carry["mith"], block)
-            _apply_prefetches(cfg, cache, stats, cands, PF_MITHRIL, valid,
-                              scorer=scorer)
+            prefetch(cache, stats, carry["mith"], block, valid, cfg.mithril)
 
         # AMP sequential prefetching + degree feedback, every piece
         # source-gated by valid-gated signals
@@ -219,14 +256,9 @@ def build_segments(cfg: SimConfig, device: Device = None):
                               scorer=scorer)
         return carry, aux
 
-    segments = [(seg_access, False)]
-    if cfg.use_mithril:
-        if rec_on in ("miss", "miss+evict"):
-            segments.append((seg_record_miss, True))
-        if rec_on in ("evict", "miss+evict"):
-            segments.append((seg_record_evict, True))
-        if rec_on == "all":
-            segments.append((seg_record_all, True))
+    segments = [(seg_access, first_rec is not None)]
+    if cfg.use_mithril and rec_on == "miss+evict":
+        segments.append((seg_record_evict, True))
     segments.append((seg_prefetch, False))
     return init_carry, segments
 

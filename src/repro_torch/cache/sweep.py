@@ -6,11 +6,11 @@ Counterpart of ``repro/cache/sweep.py``:
 * ``pad_traces`` stacks a suite of traces to a common length;
 * ``build_batched_step`` advances every trace lane by one request:
   the segments of ``simulator.build_segments`` run on the stacked
-  carry, recording segments go through
-  ``mithril.record_event_batched`` with the fused record kernel, and
-  each mining barrier is ``mithril.mine_batched`` on the device mask of
-  the lanes that filled their mining table: on the card one launch of
-  the fused mining run and no host wait;
+  carry (on the card the cache set is two hand-written kernels, the
+  access with its recording event and the MITHRIL prefetch), and each
+  mining barrier is ``mithril.mine_batched`` on the device mask of the
+  lanes that filled their mining table: on the card one launch of the
+  fused mining run and no host wait;
 * the chunk runner (``_runner``, ``compile_count``, ``reset_runners``),
   the counterpart of the reference's jitted ``lax.scan`` of a chunk: on
   the card, for each configuration, ``unroll`` = G and lane width W, one
@@ -71,9 +71,11 @@ from .simulator import Device, SimConfig, SimResult, Stats, build_segments
 
 DEFAULT_CHUNK = 4096
 DEFAULT_LANE_WIDTH = 16     # lanes per scheduled group
-# request steps in one captured graph: the fastest of G = 1, 16 and 128
-# on the real-size prefix (PERF.md)
-DEFAULT_UNROLL = 16
+# request steps in one captured graph. With the cache set in two kernels
+# a step is 3 launches, and at G = 16 the consumer's host work for each
+# replay (its copies and events) set the pace of a pass; G = 64 makes the
+# device the pace (PERF.md)
+DEFAULT_UNROLL = 64
 
 
 class PaddedSuite(NamedTuple):
@@ -103,39 +105,30 @@ def pad_traces(traces: Union[Mapping[str, np.ndarray],
 def build_batched_step(cfg: SimConfig, device: Device = None):
     """Returns ``(init_batched, step)`` on ``device`` (None: the card).
 
-    ``step(carry, block, valid)`` advances every lane by one request
-    (``block``/``valid`` are (B,)) and returns ``(carry, hit)``; the
-    carry is updated in place. Recording segments launch the fused
-    record kernel once per segment (its plain version for CPU tensors);
-    each mining barrier mines exactly the live lanes whose table filled:
-    on the card one launch of the fused mining run on the device mask.
-    On the card the step reads nothing on the host, so a CUDA graph can
-    capture it.
+    ``step(carry, block, valid, hit=None)`` advances every lane by one
+    request (``block``/``valid`` are (B,)) and returns ``(carry, hit)``;
+    the carry is updated in place and ``hit``, if given, receives the hit
+    row. On the card, without a learned scorer, the step is three
+    launches: the cache access with its first recording event
+    (``ops.cache_access``), the mining barrier, and the MITHRIL lookup
+    with its prefetch inserts (``ops.mithril_prefetch``); ``miss+evict``
+    adds the record kernel and a second barrier. Each barrier mines
+    exactly the live lanes whose table filled: on the card one launch of
+    the fused mining run on the device mask. On the card the step reads
+    nothing on the host, so a CUDA graph can capture it.
     """
     dev = resolve_device(device)
     init_carry, segments = build_segments(cfg, dev)
-    mine_rows = cfg.mithril.mine_rows
 
     def init_batched(batch_size: int):
         return init_carry(batch_size)
 
-    def batched_maybe_mine(mith, valid):
-        need = (mith.mine_fill >= mine_rows) & valid
-        return mithril.mine_batched(cfg.mithril, mith, need)
-
-    def step(carry, block, valid):
-        aux = {"valid": valid}
+    def step(carry, block, valid, hit=None):
+        aux = {"valid": valid, "hit_out": hit}
         for fn, mine_after in segments:
-            gate = getattr(fn, "record_gate", None)
-            if gate is not None:
-                blk, en = gate(block, aux)
-                mithril.record_event_batched(
-                    cfg.mithril, carry["mith"], blk, en,
-                    fused_fn=ops.mithril_record_fused)
-            else:
-                carry, aux = fn(carry, block, aux)
+            carry, aux = fn(carry, block, aux)
             if mine_after:
-                batched_maybe_mine(carry["mith"], valid)
+                mithril.mine_batched(cfg.mithril, carry["mith"], aux["need"])
         return carry, aux["hit"]
 
     return init_batched, step
@@ -255,7 +248,7 @@ class ChunkRunner:
         try:
             with torch.cuda.graph(graph):
                 for i in range(g):
-                    hits[i].copy_(self.step(carry, blocks[i], valid[i])[1])
+                    self.step(carry, blocks[i], valid[i], hits[i])
         finally:
             counted = ops.launch_counts()
             ops.set_launch_counts(before)
@@ -1168,7 +1161,7 @@ def sweep_streaming(cfg: SimConfig,
 
     stage_names = ("stream.produce", "stream.consume", "stream.drain")
     stage_s0 = [rec.total_s(k) for k in stage_names]
-    mines0 = ops.launch_counts()["mithril_mine_step"]
+    launches0 = ops.launch_counts()
     with spans.span("stream.setup"):
         runners = [_runner(cfg, unroll, d, i)
                    for i, d in enumerate(shard_devs)]
@@ -1506,8 +1499,11 @@ def sweep_streaming(cfg: SimConfig,
         stats = Stats(*(np.stack([r[j] for r in rows])
                         for j in range(len(Stats._fields))))
     spans.count("mining.runs", mines)
-    spans.count("mining.launches",
-                ops.launch_counts()["mithril_mine_step"] - mines0)
+    launched = ops.launch_counts()
+    for counter, kernel in (("mining.launches", "mithril_mine_step"),
+                            ("cache.access_launches", "cache_access"),
+                            ("cache.prefetch_launches", "mithril_prefetch")):
+        spans.count(counter, launched[kernel] - launches0[kernel])
 
     produce_s, consume_s, drain_s = (rec.total_s(k) - t for k, t in
                                      zip(stage_names, stage_s0))

@@ -1,6 +1,6 @@
-// Device code that mithril_record.cu and hash_lookup.cu share: the bucket
-// hash, the warp-wide first-hit probe of a set-associative table, and the
-// MITHRIL record event of one lane on one warp.
+// Device code that mithril_record.cu, hash_lookup.cu and cache_set.cu share:
+// the bucket hash, the warp-wide first-hit probe of a set-associative table,
+// and the MITHRIL record event of one lane on one warp (record_event).
 //
 // The record event is split in two so that a caller can put its own loads
 // into the same round as the event's bucket row (mithril_record.cu's miss
@@ -175,6 +175,22 @@ __device__ __forceinline__ int record_commit(const RecordTables& t, int l,
     t.ts[l] = ts + 1;
   }
   return migrate ? fill + 1 : fill;
+}
+
+// One record event of lane l: ``blk`` when ``en``, else a bit-exact no-op.
+// The body of mithril_record.cu's record kernel, which cache_set.cu's access
+// kernel runs too after the demand access. Every lane of the warp calls it;
+// returns mine_fill after the event.
+__device__ __forceinline__ int record_event(const RecordTables& t, int l,
+                                            int blk, bool en, int lane) {
+  // round 1 (with the caller's loads of blk and en): ts and mine_fill
+  const int ts = t.ts[l];
+  const int fill = t.mine_fill[l];
+  if (!en) return fill;
+  // round 2: the bucket row; round 3 inside record_commit
+  const size_t bucket = bucket_base(t, l, blk);
+  const WayLoad w = load_way(t, bucket, lane);
+  return record_commit(t, l, blk, ts, fill, bucket, w, lane);
 }
 
 }  // namespace mithril

@@ -66,18 +66,10 @@ __global__ void record_kernel(RecordTables t, const int* __restrict__ block,
   const int lane = threadIdx.x & 31;
   const int l = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (l >= t.lanes) return;                     // whole warp leaves together
-  // round 1: the lane's flag, block, ts and mine_fill
   const int en = enabled_is_bool
                      ? static_cast<const unsigned char*>(enabled)[l]
                      : static_cast<const int*>(enabled)[l];
-  const int blk = block[l];
-  const int ts = t.ts[l];
-  const int fill = t.mine_fill[l];
-  if (!en) return;                              // bit-exact no-op
-  // round 2: the bucket row; round 3 inside record_commit
-  const size_t bucket = mithril::bucket_base(t, l, blk);
-  const mithril::WayLoad w = mithril::load_way(t, bucket, lane);
-  mithril::record_commit(t, l, blk, ts, fill, bucket, w, lane);
+  mithril::record_event(t, l, block[l], en != 0, lane);
 }
 
 __global__ void miss_kernel(MissArgs a, int page) {

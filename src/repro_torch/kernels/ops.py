@@ -14,6 +14,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from . import backend
+from .cache_set import cache_access_kernel, mithril_prefetch_kernel
 from .hash_lookup import hash_lookup_kernel
 from .mithril_mine import pairwise_codes_kernel
 from .mithril_mine_batched import pairwise_codes_batched_kernel
@@ -30,6 +31,8 @@ KERNELS = {
     "paged_decode": paged_decode_kernel,
     "mithril_miss_step": miss_step_kernel,
     "mithril_mine_step": mine_step_kernel,
+    "cache_access": cache_access_kernel,
+    "mithril_prefetch": mithril_prefetch_kernel,
 }
 
 
@@ -64,6 +67,11 @@ mithril_pairwise_batched = pairwise_codes_batched_kernel
 # drop-in for ``core.mithril.mine_batched`` (cfg, states, need): the whole
 # mining run of the flagged lanes, one launch on the card
 mithril_mine_step = mine_step_kernel
+# the request step's cache set (``cache_set``): the demand access with its
+# statistics and first record event, one launch on the card; and the
+# MITHRIL lookup with its prefetch inserts, one launch after the barrier
+cache_access = cache_access_kernel
+mithril_prefetch = mithril_prefetch_kernel
 
 
 @functools.lru_cache(maxsize=None)

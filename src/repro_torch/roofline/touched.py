@@ -73,6 +73,88 @@ def record_ops(cfg, n_enabled: int) -> float:
     return n_enabled * (16 + 8 * w + 6 * r + 8 * s)
 
 
+def cache_set_bytes(ways: int, written: bool, hit: bool) -> float:
+    """One access to a cache set: its W keys read; a hit writes the
+    way's stamp, flag, layer and frequency; an insertion reads the W
+    stamps and writes the way's seven fields."""
+    if hit:
+        return 4.0 * (ways + 4)
+    if written:
+        return 4.0 * (2 * ways + 7)
+    return 4.0 * ways
+
+
+def cache_access_work(cfg, carry, blk, val):
+    """Least bytes and operations of one ``cache_access`` launch (``cfg``
+    a ``SimConfig``; its first recording event fused) on ``carry``, which
+    the plain version then advances in place. Bytes: per lane its valid
+    flag and outputs (hit, need, used layer, the eviction); per valid
+    lane its block, clock and request count (read and written), the
+    cache set (:func:`cache_set_bytes`), the hit, used and evicted-unused
+    counters it changes (read and written), and its record event
+    (:func:`record_event_bytes`, less the enable flags, which the fused
+    launch computes in registers). Operations: per valid lane the hash
+    and W compares, per insertion two W-way minima (the second chance),
+    and the record event's (:func:`record_ops`)."""
+    from ..cache.simulator import cache_access_plain
+    from ..core.hashindex import EMPTY
+    m, w = cfg.mithril, cfg.ways
+    rec = m.record_on.split("+")[0] if cfg.use_mithril else None
+    acc = cache_access_plain(carry["cache"], carry["stats"], blk, val,
+                             cfg.policy)
+    hit, ev = acc.hit, acc.evicted
+    n, n_hit = int(val.sum()), int(hit.sum())
+    n_ins = int((val & ~hit).sum())
+    by = blk.shape[0] * (1 + 14 + (rec is not None))
+    by += 4.0 * (5 * n + 2 * n_hit + 2 * int((acc.used_src != 0).sum())
+                 + 2 * int(ev.unused_pf.sum()))
+    by += (n_hit * cache_set_bytes(w, False, True)
+           + n_ins * cache_set_bytes(w, True, False)
+           + (n - n_hit - n_ins) * cache_set_bytes(w, False, False))
+    ops = n * (12.0 + w) + n_ins * 2.0 * w
+    if rec is not None:
+        b, en = {"miss": (blk, val & ~hit),
+                 "evict": (ev.block, ev.block != EMPTY),
+                 "all": (blk, val)}[rec]
+        by += record_event_bytes(m, carry["mith"], b, en.to(torch.int32))
+        by -= 4.0 * blk.shape[0]
+        ops += record_ops(m, int(en.sum()))
+    return by, ops
+
+
+def mithril_prefetch_work(cfg, carry, blk, val):
+    """Least bytes and operations of one ``mithril_prefetch`` launch on
+    ``carry``, which the plain version then advances in place. Bytes:
+    per lane its valid flag; per valid lane its block and clock, the
+    prefetch bucket's keys and a hit way's P values; per live candidate
+    the cache set (:func:`cache_set_bytes`, an insertion or a probe of W
+    keys); the issued and evicted-unused counters it changes (read and
+    written). Operations: per valid lane the hash and the prefetch
+    bucket's compares, per live candidate the hash, W compares and, if
+    inserted, a W-way minimum."""
+    from ..cache.simulator import mithril_prefetch_plain
+    from ..core import mithril
+    from ..core.hashindex import EMPTY
+    m, w = cfg.mithril, cfg.ways
+    stats = carry["stats"]
+    cands = mithril.lookup(m, carry["mith"], blk)
+    issued0 = int(stats.pf_issued.sum())
+    unused0 = int(stats.pf_evicted_unused.sum())
+    mithril_prefetch_plain(carry["cache"], stats, carry["mith"], blk, val, m)
+    issued = int(stats.pf_issued.sum()) - issued0
+    unused = int(stats.pf_evicted_unused.sum()) - unused0
+    n = int(val.sum())
+    live = int(((cands != EMPTY) & val[:, None]).sum())
+    found = int((val & (cands != EMPTY).any(-1)).sum())
+    by = (blk.shape[0]
+          + 4.0 * (2 * n + n * m.pf_ways + found * m.prefetch_list
+                   + 2 * issued + 2 * unused)
+          + issued * cache_set_bytes(w, True, False)
+          + (live - issued) * cache_set_bytes(w, False, False))
+    ops = n * (12.0 + m.pf_ways) + live * (12.0 + w) + issued * w
+    return by, ops
+
+
 def miss_event_bytes(cfg, st, page) -> float:
     """Least bytes of one serving-tier miss (one lane) on ``st``, which
     the plain version then advances in place: the record event's

@@ -856,8 +856,10 @@ def test_launch_counters_count_the_replays(cuda):
           device=cuda)
     runner = chunk_runner(cfg, 8, cuda)
     graph = runner.graphs[4]
-    # rec_on = "miss": one record launch and one mining run a step
-    assert graph.launches == {"mithril_record": 8, "mithril_mine_step": 8}
+    # rec_on = "miss": the access with its record event, one mining run
+    # and the prefetch a step
+    assert graph.launches == {"cache_access": 8, "mithril_mine_step": 8,
+                              "mithril_prefetch": 8}
     assert runner.replays == 9 * 13      # 9 slabs of 13 groups
     counts = ops.launch_counts()
     for name, n in counts.items():
@@ -916,6 +918,8 @@ def test_the_sweep_record_on_the_card(cuda, monkeypatch):
     assert len(rec.events["replay"]) == n
     assert "runner.capture" not in rec.spans
     assert rec.counters["mining.launches"] == 8 * n
+    assert rec.counters["cache.access_launches"] == 8 * n
+    assert rec.counters["cache.prefetch_launches"] == 8 * n
     share = window_idle_share()({})
     assert reads and 0.0 <= share <= 100.0
     # under the profiler the spans are host operations of the trace and
@@ -946,8 +950,8 @@ def test_a_failed_capture_raises(cuda):
     runner = sw.ChunkRunner(cfg, 4, cuda)
     step = runner.step
 
-    def host_read(carry, block, valid):
-        out = step(carry, block, valid)
+    def host_read(carry, block, valid, hit=None):
+        out = step(carry, block, valid, hit)
         int(out[1].sum())
         return out
 
@@ -1317,3 +1321,304 @@ def test_readahead_on_the_card_counts_its_launches(cuda):
     assert mines == int(cpu._route.state.n_mines[0]) > 0
     assert n["mithril_miss_step"] == card.readahead_misses
     assert n["mithril_mine_step"] == n["hash_lookup"] == mines
+
+
+# ---------------------------------------------------------------------------
+# the request step's cache set: the access and the MITHRIL prefetch kernels
+# ---------------------------------------------------------------------------
+
+# (lanes, ways, buckets): every lane width, way count and bucket count of
+# the card's sweeps (the paper's 65,536 blocks are 4,096 buckets of 16)
+CACHE_SET_SHAPES = [(1, 4, 1), (5, 16, 1), (5, 32, 32), (135, 16, 32),
+                    (1, 4, 4096), (135, 16, 4096)]
+# R = 1: a recorded block enters the mining table at once, so lanes mine
+# often whatever their cache's size
+CACHE_SET_MITHRIL = MithrilConfig(min_support=1, max_support=8, lookahead=50,
+                                  prefetch_list=3, rec_buckets=64, rec_ways=4,
+                                  mine_rows=16, pf_buckets=64, pf_ways=4)
+
+
+def np_bucket(blocks, nb):
+    """``hashindex.bucket_index`` in numpy (murmur3's finalizer on the
+    uint32 bits)."""
+    k = np.asarray(blocks, np.int64).astype(np.uint64) & 0xFFFFFFFF
+    with np.errstate(over="ignore"):
+        k ^= k >> 16
+        k = (k * 0x7FEB352D) & 0xFFFFFFFF
+        k ^= k >> 15
+        k = (k * 0x846CA68B) & 0xFFFFFFFF
+        k ^= k >> 16
+    return (k & (nb - 1)).astype(np.int64)
+
+
+def bucket_lists(universe, nb):
+    """(NB, n) blocks of ``universe`` by cache bucket, -1 padded, and the
+    count of each bucket."""
+    bk = np_bucket(universe, nb)
+    order = np.argsort(bk, kind="stable")
+    counts = np.bincount(bk, minlength=nb)
+    lists = np.full((nb, max(1, counts.max())), -1, np.int64)
+    starts = np.cumsum(counts) - counts
+    pos = np.arange(len(universe)) - starts[bk[order]]
+    lists[bk[order], pos] = universe[order]
+    return lists, counts
+
+
+def planted_cache_set(rng, lanes, ways, nb, mcfg):
+    """A cache, statistics and MITHRIL state that exercise every rule of
+    the cache set at once, on the CPU: buckets full of blocks that hash
+    there (some ways empty) with many stamp ties, unused prefetched blocks
+    with their second chance left, a mining table one or two migrations
+    short of its mining run, and a prefetch table whose rows hold a
+    block's own id, EMPTY values and candidates that share one cache
+    bucket. Returns the state, the block universe, a loop of 40 blocks a
+    lane, each with a prefetch row, and W + 4 blocks a lane of one cache
+    bucket (they miss in turn, so they record and mine)."""
+    from repro_torch.cache.base import pack_cache
+    from repro_torch.cache.simulator import init_stats
+    universe = np.arange(max(64, 2 * nb * ways), dtype=np.int64)
+    lists, counts = bucket_lists(universe, nb)
+    w = np.arange(ways)
+    off = rng.integers(0, 1 << 20, size=(lanes, nb, 1))
+    n = np.minimum(counts, ways)[None, :, None]
+    keys = lists[np.arange(nb)[None, :, None],
+                 (off + w) % np.maximum(counts, 1)[None, :, None]]
+    keys = np.where((w < n) & (rng.random((lanes, nb, ways)) > 0.08),
+                    keys, -1)
+    full = keys >= 0
+    flag = (rng.random(keys.shape) < 0.5) & full
+    src = np.where(flag, rng.integers(1, 4, keys.shape), 0)
+    stamp = rng.integers(0, 6, keys.shape)
+    cache = pack_cache(*(torch.as_tensor(x.astype(np.int32)) for x in (
+        keys, stamp, flag, np.zeros(keys.shape), src,
+        rng.integers(0, 5, keys.shape), rng.integers(0, 3, keys.shape),
+        rng.integers(6, 9, lanes))))
+    stats = init_stats("cpu", lanes)
+    mith = init_state(mcfg, "cpu", lanes)
+    pb, pw, p = mcfg.pf_buckets, mcfg.pf_ways, mcfg.prefetch_list
+    pf_key = np.full((lanes, pb, pw), -1, np.int64)
+    pf_vals = np.full((lanes, pb, pw, p), -1, np.int64)
+    loops = rng.choice(universe, size=(lanes, 40))
+    filled = np.flatnonzero(counts)
+    for lane in range(lanes):
+        sources = np.concatenate([loops[lane], rng.choice(universe, 2 * pb)])
+        for s in sources:
+            b = np_bucket(s, pb)
+            free = np.flatnonzero(pf_key[lane, b] < 0)
+            if not len(free) or (pf_key[lane, b] == s).any():
+                continue
+            kind = rng.integers(0, 4)
+            if kind == 0:     # every candidate in one cache bucket
+                row = lists[rng.choice(filled)]
+                vals = rng.choice(row[row >= 0], size=p)
+            elif kind == 1:   # the block itself and EMPTY among them
+                vals = rng.choice(np.array([s, -1, rng.choice(universe)]),
+                                  size=p)
+            else:
+                vals = rng.choice(universe, size=p)
+            pf_key[lane, b, free[0]] = s
+            pf_vals[lane, b, free[0]] = vals
+    nm, s_sup = mcfg.mine_rows, mcfg.max_support
+    fill = nm - rng.integers(1, 3, lanes)
+    rows = np.arange(nm) < fill[:, None]
+    cnt = np.where(rows, rng.integers(mcfg.min_support, s_sup + 1,
+                                      (lanes, nm)), 0)
+    ts = np.sort(rng.integers(0, 900, (lanes, nm, s_sup)), -1)
+    planted = {"pf_key": pf_key, "pf_vals": pf_vals,
+               "mine_block": np.where(rows, rng.choice(universe, (lanes, nm)),
+                                      -1),
+               "mine_ts": np.where(np.arange(s_sup) < cnt[..., None], ts, 0),
+               "mine_cnt": cnt, "mine_fill": fill,
+               "ts": np.full(lanes, 1000)}
+    for name, value in planted.items():
+        getattr(mith, name).copy_(torch.as_tensor(value.astype(np.int32)))
+    crowded = lists[np.argsort(-counts, kind="stable")[np.arange(lanes) % nb]]
+    thrash = np.stack([rng.permutation(row[row >= 0])[:ways + 4]
+                       for row in crowded])
+    return ({"cache": cache, "stats": stats, "mith": mith}, universe, loops,
+            thrash)
+
+
+def cache_set_traffic(rng, steps, universe, loops, thrash):
+    """(steps, lanes) blocks: 40% from the lane's loop (they hit and find
+    prefetch rows), 30% its crowded bucket's blocks in turn (each misses,
+    so they record and mine), 30% uniform; and the valid mask, about 12%
+    of requests invalid."""
+    lanes = len(loops)
+    at = np.arange(steps)[:, None]
+    lane = np.arange(lanes)[None]
+    pick = rng.random((steps, lanes))
+    turn = np.cumsum((pick >= 0.4) & (pick < 0.7), axis=0)
+    blocks = np.where(pick < 0.4, loops[lane, at % loops.shape[1]],
+                      np.where(pick < 0.7, thrash[lane,
+                                                  turn % thrash.shape[1]],
+                               rng.choice(universe, size=(steps, lanes))))
+    valid = rng.random((steps, lanes)) > 0.12
+    return blocks.astype(np.int32), valid
+
+
+def run_cache_set(carry, blocks, valid, policy, rec_on, mcfg):
+    """The step's cache set and barriers through the wrappers: the access
+    with the first recording event, the mining barrier, the second event
+    of ``miss+evict`` with its barrier, then the MITHRIL prefetch. CPU
+    states take the plain versions. Returns each step's outputs."""
+    from repro_torch.core import mithril
+    from repro_torch.kernels.cache_set import (cache_access_kernel,
+                                               mithril_prefetch_kernel)
+    cache, stats, mith = carry["cache"], carry["stats"], carry["mith"]
+    first = rec_on.split("+")[0]
+    outs = []
+    for blk, val in zip(blocks, valid):
+        acc = cache_access_kernel(cache, stats, blk, val, policy, mith, first,
+                                  mcfg.mine_rows)
+        mithril.mine_batched(mcfg, mith, acc.need)
+        ev_block, ev_unused, ev_src = acc.evicted
+        if rec_on == "miss+evict":
+            ops.mithril_record_fused(mith, ev_block, ev_block != -1)
+            mithril.mine_batched(mcfg, mith,
+                                 (mith.mine_fill >= mcfg.mine_rows) & val)
+        mithril_prefetch_kernel(cache, stats, mith, blk, val, mcfg)
+        outs.append(torch.stack([acc.hit.int(), acc.used_src, ev_block,
+                                 ev_unused.int(), ev_src, acc.need.int()]))
+    return torch.stack(outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rec_on", ["miss", "evict", "all", "miss+evict"])
+@pytest.mark.parametrize("policy", ["lru", "fifo"])
+@pytest.mark.parametrize("lanes,ways,nb", CACHE_SET_SHAPES)
+def test_cache_set_kernels_match_plain(cuda, lanes, ways, nb, policy,
+                                       rec_on):
+    """The access kernel (with its record event and need) and the MITHRIL
+    prefetch kernel equal their plain versions bit for bit: every output
+    of every step and every leaf of the cache, statistics and MITHRIL
+    state, over full buckets that force the second chance, stamp ties,
+    invalid requests, and prefetch rows with candidates in one bucket,
+    equal to the block, or EMPTY."""
+    import dataclasses
+    rng = np.random.default_rng(lanes * 7919 + ways * 31 + nb)
+    mcfg = dataclasses.replace(CACHE_SET_MITHRIL, record_on=rec_on)
+    cpu, universe, loops, thrash = planted_cache_set(rng, lanes, ways, nb,
+                                                     mcfg)
+    gpu = {k: type(v)(*(x.to(cuda) for x in v)) for k, v in cpu.items()}
+    from repro_torch.cache.base import pack_cache
+    gpu["cache"] = pack_cache(*gpu["cache"])
+    blocks, valid = cache_set_traffic(rng, 240, universe, loops, thrash)
+    before = ops.launch_counts()
+    got = run_cache_set(gpu, torch.as_tensor(blocks, device=cuda),
+                        torch.as_tensor(valid, device=cuda), policy, rec_on,
+                        mcfg)
+    want = run_cache_set(cpu, torch.as_tensor(blocks), torch.as_tensor(valid),
+                         policy, rec_on, mcfg)
+    torch.cuda.synchronize()
+    n = {k: v - before[k] for k, v in ops.launch_counts().items()}
+    assert n["cache_access"] == n["mithril_prefetch"] == 240
+    assert n["mithril_record"] == (240 if rec_on == "miss+evict" else 0)
+    assert torch.equal(got.cpu(), want)
+    for part in ("cache", "stats", "mith"):
+        for name, a, b in zip(cpu[part]._fields, gpu[part], cpu[part]):
+            assert torch.equal(a.cpu(), b), (part, name)
+    stats = cpu["stats"]
+    assert int(stats.pf_issued[:, 1].sum()) > 0
+    assert int(stats.hits.sum()) > 0
+    assert int(cpu["cache"].pf_sc.sum()) > 0       # second chances granted
+    assert int(got[:, 5].sum()) > 0                 # lanes mined
+    if lanes > 1:
+        assert int(stats.requests.sum()) < lanes * 240
+
+
+@pytest.mark.cuda
+def test_cache_set_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    import dataclasses
+    from repro_torch.cache.base import CacheState, init_cache
+    from repro_torch.cache.simulator import init_stats
+    from repro_torch.kernels.cache_set import (cache_access_kernel,
+                                               mithril_prefetch_kernel)
+    mcfg = CACHE_SET_MITHRIL
+    cache = init_cache(64, ways=16, device=cuda, lanes=2)
+    stats = init_stats(cuda, 2)
+    mith = init_state(mcfg, cuda, lanes=2)
+    blk = torch.zeros(2, dtype=torch.int32, device=cuda)
+    val = torch.ones(2, dtype=torch.bool, device=cuda)
+    cache_access_kernel(cache, stats, blk, val, "lru", mith, "miss", 16)
+    mithril_prefetch_kernel(cache, stats, mith, blk, val, mcfg)
+    with pytest.raises(ValueError):         # 33 ways: more than a warp
+        cache_access_kernel(init_cache(66, ways=33, device=cuda, lanes=2),
+                            stats, blk, val)
+    with pytest.raises(ValueError):         # 48 ways
+        mithril_prefetch_kernel(init_cache(96, ways=48, device=cuda,
+                                           lanes=2), stats, mith, blk, val,
+                                mcfg)
+    with pytest.raises(TypeError):
+        cache_access_kernel(cache, stats, blk.long(), val)
+    with pytest.raises(TypeError):
+        cache_access_kernel(cache, stats, blk, val.int())
+    with pytest.raises(ValueError):
+        cache_access_kernel(cache, stats, blk.cpu(), val)
+    with pytest.raises(ValueError):
+        mithril_prefetch_kernel(cache, stats, mith, blk, val.cpu(), mcfg)
+    with pytest.raises(TypeError):
+        cache_access_kernel(cache, stats._replace(hits=stats.hits.long()),
+                            blk, val)
+    with pytest.raises(ValueError):         # not one packed tensor
+        cache_access_kernel(CacheState(*(x.clone() for x in cache)), stats,
+                            blk, val)
+    with pytest.raises(ValueError):         # the MITHRIL state's lanes
+        cache_access_kernel(cache, stats, blk, val, "lru",
+                            init_state(mcfg, cuda, lanes=3), "miss", 16)
+    with pytest.raises(ValueError):
+        cache_access_kernel(cache, stats, blk, val, "lfu")
+    with pytest.raises(ValueError):         # the configuration's buckets
+        mithril_prefetch_kernel(cache, stats, mith, blk, val,
+                                dataclasses.replace(mcfg, pf_buckets=32))
+    with pytest.raises(TypeError):
+        mithril_prefetch_kernel(cache, stats, mith._replace(
+            pf_vals=mith.pf_vals.long()), blk, val, mcfg)
+    with pytest.raises(ValueError):
+        cache_access_kernel(cache, stats, blk, val,
+                            hit=torch.zeros(3, dtype=torch.bool,
+                                            device=cuda))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", RUNNER_LABELS)
+def test_cache_set_launches_and_counters_in_the_runner(cuda, label):
+    """A MITHRIL-LRU replay launches G of the access, the mining run and
+    the prefetch, and no record kernel (record on miss); the sweep's
+    ``cache.*_launches`` counters are the steps replayed. A learned
+    configuration keeps the plain cache set: both counters read 0 and its
+    replays still equal its eager steps."""
+    from repro_torch.cache import build_batched_step, chunk_runner, sweep
+    from repro_torch.runtime import spans
+    sw = sweep_module()
+    sw.reset_runners()
+    cfg = runner_configs()[label]
+    blocks = runner_blocks(4, 900, seed=2)
+    lengths = np.array([900, 850, 400, 30])
+    sweep(cfg, blocks, lengths, chunk=100, unroll=16, device=cuda)
+    runner = chunk_runner(cfg, 16, cuda)
+    replays = runner.replays
+    res = sweep(cfg, blocks, lengths, chunk=100, unroll=16, device=cuda)
+    rec = spans.records()[-1]
+    steps = 16 * (runner.replays - replays)
+    launches = runner.graphs[4].launches
+    if label == "mithril-lru":
+        assert launches == {"cache_access": 16, "mithril_mine_step": 16,
+                            "mithril_prefetch": 16}
+        assert rec.counters["cache.access_launches"] == steps
+        assert rec.counters["cache.prefetch_launches"] == steps
+        return
+    assert "cache_access" not in launches
+    assert "mithril_prefetch" not in launches
+    assert rec.counters["cache.access_launches"] == 0
+    assert rec.counters["cache.prefetch_launches"] == 0
+    init, step = build_batched_step(cfg, cuda)
+    carry = init(4)
+    xs = torch.as_tensor(np.ascontiguousarray(blocks.T), device=cuda)
+    valid = torch.as_tensor(np.arange(900)[:, None] < lengths[None],
+                            device=cuda)
+    hits = torch.stack([step(carry, xs[t], valid[t])[1] for t in range(900)])
+    np.testing.assert_array_equal(res.hit_curve, hits.cpu().numpy().T)
+    for a, b in zip(sw._leaves(runner.carry(4)), sw._leaves(carry)):
+        assert torch.equal(a, b)

@@ -144,8 +144,9 @@ def test_simulate_without_a_card_raises():
 
 def test_kernel_sources_and_build_flags():
     from repro_torch.kernels import backend
-    assert set(backend.sources()) == {"hash_lookup", "mithril_mine",
-                                      "mithril_record", "paged_decode"}
+    assert set(backend.sources()) == {"cache_set", "hash_lookup",
+                                      "mithril_mine", "mithril_record",
+                                      "paged_decode"}
     assert "arch=compute_90a,code=sm_90a" in backend.NVCC_FLAGS
     assert backend.BUILD_DIR == ROOT / "build" / "kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()

@@ -200,3 +200,73 @@ def test_kernel_wrappers_reject_bad_inputs():
                                                   device="meta"), 4, 4)
     with pytest.raises(ValueError):
         pairwise_codes_kernel(ts, ts, ts, 4, 4)
+
+
+def test_cache_set_wrappers_on_the_cpu_take_the_plain_composition():
+    """On CPU states the cache-set wrappers are the plain composition
+    (``cache.base.access`` with its counts and the record event; the
+    lookup with its inserts) and launch nothing."""
+    import dataclasses
+    from repro_torch.cache.base import init_cache
+    from repro_torch.cache.simulator import (cache_access_plain, init_stats,
+                                             mithril_prefetch_plain)
+    from repro_torch.kernels.cache_set import (cache_access_kernel,
+                                               mithril_prefetch_kernel)
+    cfg = dataclasses.replace(small_cfg(), pf_buckets=16)
+    sides = [{"cache": init_cache(64, ways=4, device="cpu", lanes=3),
+              "stats": init_stats("cpu", 3),
+              "mith": init_state(cfg, "cpu", lanes=3)} for _ in range(2)]
+    for side in sides:
+        side["mith"].pf_key[:, :, 0] = torch.arange(16, dtype=torch.int32)
+        side["mith"].pf_vals[:, :, 0] = torch.arange(16, 32)[:, None]
+    rng = np.random.default_rng(4)
+    ops.reset_launch_counts()
+    for _ in range(60):
+        blk = torch.as_tensor(rng.integers(0, 40, 3).astype(np.int32))
+        val = torch.as_tensor(rng.random(3) < 0.8)
+        outs = []
+        for side, (access, prefetch) in zip(sides, (
+                (cache_access_kernel, mithril_prefetch_kernel),
+                (cache_access_plain, mithril_prefetch_plain))):
+            acc = access(side["cache"], side["stats"], blk, val, "lru",
+                         side["mith"], "miss", cfg.mine_rows)
+            prefetch(side["cache"], side["stats"], side["mith"], blk, val,
+                     cfg)
+            outs.append(acc)
+        for a, b in zip(*outs):
+            assert all(torch.equal(x, y) for x, y in zip(
+                a if isinstance(a, tuple) else (a,),
+                b if isinstance(b, tuple) else (b,)))
+    for part in ("cache", "stats", "mith"):
+        for a, b in zip(sides[0][part], sides[1][part]):
+            assert torch.equal(a, b)
+    assert int(sides[0]["stats"].pf_issued[:, 1].sum()) > 0
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+
+
+def test_cache_set_wrappers_reject_bad_inputs():
+    """The cache-set launchers check the state before any launch (through
+    the meta device): more than a warp of ways, a bucket count that is
+    not a power of two, a table of another dtype."""
+    from repro_torch.cache.base import CacheState, init_cache
+    from repro_torch.cache.simulator import init_stats
+    from repro_torch.kernels.cache_set import (cache_access_kernel,
+                                               mithril_prefetch_kernel)
+    stats = init_stats("meta", 2)
+    blk = torch.zeros(2, dtype=torch.int32, device="meta")
+    val = torch.ones(2, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError):
+        cache_access_kernel(init_cache(66, ways=33, device="meta", lanes=2),
+                            stats, blk, val)
+    with pytest.raises(ValueError):
+        mithril_prefetch_kernel(
+            init_cache(96, ways=48, device="meta", lanes=2), stats,
+            init_state(small_cfg(), "meta", lanes=2), blk, val, small_cfg())
+    odd = init_cache(64, ways=4, device="meta", lanes=2)
+    with pytest.raises(ValueError):
+        cache_access_kernel(CacheState(*(x[:, :3] for x in odd[:7]),
+                                       odd.clock), stats, blk, val)
+    with pytest.raises(TypeError):
+        cache_access_kernel(odd._replace(stamp=odd.stamp.long()), stats,
+                            blk, val)
+    assert ops.launch_counts()["cache_access"] == 0

@@ -220,6 +220,53 @@ def test_touched_bounds(kernel):
     assert tb.bound_ms(1.0, 67e9) == (1.0, "operations")
 
 
+@pytest.mark.parametrize("kernel", ["cache_access", "mithril_prefetch"])
+def test_cache_set_work(kernel):
+    """The cache-set kernels' bounds advance the carry exactly as the
+    plain version does, count the flags alone (and no operation) for a
+    launch with every lane invalid, and on valid lanes at least each
+    lane's block and the W keys of the sets it probes."""
+    import dataclasses
+    from repro_torch.cache import SimConfig, build_segments
+    from repro_torch.cache.base import pack_cache
+    from repro_torch.cache.simulator import (cache_access_plain,
+                                             mithril_prefetch_plain)
+    mcfg = dataclasses.replace(config_from(ref_core.MithrilConfig(
+        **SERVING)), pf_buckets=16, record_on="miss")
+    cfg = SimConfig(capacity=64, ways=4, use_mithril=True, mithril=mcfg)
+    init, _ = build_segments(cfg, "cpu")
+    lanes = 3
+    carry = init(lanes)
+    carry["mith"].pf_key[:, :, 0] = torch.arange(16, dtype=torch.int32)
+    carry["mith"].pf_vals[:, :, 0] = torch.arange(16, 32)[:, None]
+    work = getattr(tb, f"{kernel}_work")
+    rng = np.random.default_rng(5)
+    for _ in range(40):
+        blk = torch.as_tensor(rng.integers(0, 40, lanes).astype(np.int32))
+        val = torch.as_tensor(rng.random(lanes) < 0.8)
+        ours = {k: type(v)(*(x.clone() for x in v)) for k, v in carry.items()}
+        ours["cache"] = pack_cache(*ours["cache"])
+        if kernel == "cache_access":
+            cache_access_plain(carry["cache"], carry["stats"], blk, val,
+                               "lru", carry["mith"], "miss", mcfg.mine_rows)
+        else:
+            mithril_prefetch_plain(carry["cache"], carry["stats"],
+                                   carry["mith"], blk, val, mcfg)
+        by, ops = work(cfg, ours, blk, val)
+        for part in carry:
+            for x, y in zip(ours[part], carry[part]):
+                assert torch.equal(x, y)
+        n = int(val.sum())
+        assert by >= lanes + 4.0 * n * (1 + cfg.ways) and ops >= 0
+        assert (ops > 0) == (n > 0)
+    off = torch.zeros(lanes, dtype=torch.bool)
+    flags = lanes * (16 if kernel == "cache_access" else 1)
+    assert work(cfg, carry, blk, off) == (flags, 0.0)
+    st = carry["stats"]
+    assert int((st.hits if kernel == "cache_access" else st.pf_issued)
+               .sum()) > 0
+
+
 def test_machine_peaks_trust():
     tpu = pa.machine_peaks("tpu")
     assert tpu == pa.MachinePeaks("tpu", ra.PEAK_FLOPS, ra.HBM_BW, True)

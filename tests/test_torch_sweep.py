@@ -96,6 +96,27 @@ def test_simulate_matches_reference(quick, label):
     np.testing.assert_array_equal(got.hit_curve, want.hit_curve)
 
 
+@pytest.mark.parametrize("policy", ["lru", "fifo"])
+@pytest.mark.parametrize("record_on", ["miss", "evict", "all", "miss+evict"])
+def test_every_recording_event_matches_reference(record_on, policy):
+    """The access segment runs the step's first recording event (the
+    demanded block on a miss, the evicted block, or every request), and
+    ``miss+evict`` its second after a barrier: each, under both policies,
+    on ragged lanes of associated blocks, held against the reference."""
+    cfg = dataclasses.replace(
+        configs(CAPACITY)["mithril-lru"], policy=policy,
+        mithril=dataclasses.replace(SMALL_MITHRIL, record_on=record_on))
+    blocks = np.stack([pt.association_groups(
+        600, n_groups=12, reuse=40, lba_space=512, seed=s)
+        for s in range(6)]).astype(np.int32)
+    lengths = np.array([600, 550, 600, 400, 600, 600])
+    want = rc.sweep(cfg, blocks, lengths, shard=False)
+    got = pc.sweep(config_from(cfg), blocks, lengths, device="cpu")
+    assert_stats_equal(got.stats, want.stats, record_on)
+    np.testing.assert_array_equal(got.hit_curve, want.hit_curve)
+    assert int(np.asarray(got.stats.pf_issued)[:, 1].sum()) > 0
+
+
 def test_session_matches_simulate():
     cfg = config_from(grid_config("mithril-amp-lru"))
     trace = pt.mixed(300, seed=5)

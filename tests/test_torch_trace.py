@@ -152,7 +152,9 @@ def test_a_streamed_pass_records_its_spans(async_on):
     assert rec.count_of("stream.consume") == got.n_slabs
     assert rec.count_of("runner.run") == got.n_slabs
     assert rec.events == {}         # device events are the card's
-    assert rec.counters["mining.launches"] == 0     # the CPU counts none
+    for counter in ("mining.launches", "cache.access_launches",
+                    "cache.prefetch_launches"):
+        assert rec.counters[counter] == 0           # the CPU counts none
     # the pipeline's stage timings are the record's totals
     p = got.pipeline
     for key, name in (("produce_s", "stream.produce"),
